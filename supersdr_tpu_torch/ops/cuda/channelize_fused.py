@@ -1,0 +1,197 @@
+"""Fused channelizer: PFB fold + DIF stage A + stage-B DFT, one pass.
+
+Counterpart of `supersdr_tpu/ops/pallas/channelize_fused.py`
+(`channelize_fused_c(out_layout="raw3")`). The kernel is
+`csrc/channelize_fused.cu`; `channelize_fused_plain` is the same function
+in plain PyTorch. `channelize_fused_raw3` runs the plain version for CPU
+tensors and the kernel for CUDA tensors.
+
+Output: the raw planar planes [n1, nf, n2], planar channel k1·n2 + k2 =
+PFB bin k2·n1 + k1. The port runs stage B unsplit, so the column order is
+the identity (the reference's radix-2 stage-B split exists to halve TPU
+MXU work; `runtime.wideband._split_levels_for`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from supersdr_tpu_torch import _build
+from supersdr_tpu_torch.ops import channelizer, cx
+from supersdr_tpu_torch.ops.cuda import check_fp32_matmul
+
+I16_SCALE = 1.0 / 32768.0
+MAX_TAPS_PER = 8      # the kernel's kKMax: fold rows held in registers
+
+
+@lru_cache(maxsize=16)
+def _tables(M: int, n1: int, n2: int, bf16_b: bool, device: str
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(At_r, At_i) [n1·n1, n2] with At[j1·n1 + k1, j2] = A[j2, k1, j1],
+    and the stage-B DFT as interleaved complex [n2, n2, 2] — rounded to
+    bf16 values for the bf16 tier."""
+    Ar, Ai, c2r, c2i = channelizer._dif_tables(M, n1, n2)
+    At_r = np.ascontiguousarray(Ar.transpose(2, 1, 0).reshape(n1 * n1, n2))
+    At_i = np.ascontiguousarray(Ai.transpose(2, 1, 0).reshape(n1 * n1, n2))
+    c2 = torch.from_numpy(np.stack([c2r, c2i], axis=-1))
+    if bf16_b:
+        c2 = c2.to(torch.bfloat16).float()
+    return (torch.from_numpy(At_r).to(device),
+            torch.from_numpy(At_i).to(device),
+            c2.contiguous().to(device))
+
+
+def channelize_fused_plain(g2: torch.Tensor, At_r: torch.Tensor,
+                           At_i: torch.Tensor, c2: torch.Tensor,
+                           head_r: torch.Tensor, head_i: torch.Tensor,
+                           x_r: torch.Tensor, x_i: torch.Tensor, *,
+                           n1: int, n2: int, in_scale: float, bf16_b: bool,
+                           out_dtype: torch.dtype
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch channelizer. x_*: [nf, M] f32 (in_scale 0) or int16
+    (×in_scale); head_*: [K−1, M] carry rows; g2: [K, M] fold taps.
+    Returns raw planes [n1, nf, n2] in out_dtype."""
+    check_fp32_matmul(x_r)
+    nf, M = x_r.shape
+    K = g2.shape[0]
+
+    def seg(head, x):
+        x = x.float() * in_scale if in_scale else x
+        return torch.cat([head, x], dim=0)
+
+    sr, si = seg(head_r, x_r), seg(head_i, x_i)
+    fr = g2[0] * sr[0:nf]
+    fi = g2[0] * si[0:nf]
+    for k in range(1, K):
+        fr = fr + g2[k] * sr[k:k + nf]
+        fi = fi + g2[k] * si[k:k + nf]
+    f3r = fr.reshape(nf, n1, n2)
+    f3i = fi.reshape(nf, n1, n2)
+    Ar = At_r.reshape(n1, n1, n2)          # [j1, k1, j2]
+    Ai = At_i.reshape(n1, n1, n2)
+    yr = torch.zeros(n1, nf, n2, dtype=torch.float32, device=x_r.device)
+    yi = torch.zeros_like(yr)
+    for j1 in range(n1):
+        ar, ai = Ar[j1][:, None, :], Ai[j1][:, None, :]
+        xr, xi = f3r[None, :, j1, :], f3i[None, :, j1, :]
+        yr = yr + (ar * xr - ai * xi)
+        yi = yi + (ar * xi + ai * xr)
+    if bf16_b:
+        yr = yr.to(torch.bfloat16).float()
+        yi = yi.to(torch.bfloat16).float()
+    c2r, c2i = c2[..., 0], c2[..., 1]
+    out_r = yr @ c2r - yi @ c2i
+    out_i = yr @ c2i + yi @ c2r
+    return out_r.to(out_dtype), out_i.to(out_dtype)
+
+
+def _launch(g2, At_r, At_i, c2, head_r, head_i, x_r, x_i, *, n1, n2,
+            in_scale, bf16_b, out_dtype):
+    lib = _build.load()
+    nf, M = x_r.shape
+    K = g2.shape[0]
+    if lib.channelize_fused_tile(n1, n2) == 0:
+        raise ValueError(f"factoring ({n1}, {n2}): the stage-A tile does "
+                         "not fit in shared memory")
+    if K > MAX_TAPS_PER:
+        raise ValueError(f"the kernel folds at most {MAX_TAPS_PER} taps a "
+                         f"branch, got taps_per={K}")
+    out_r = torch.empty(n1, nf, n2, dtype=out_dtype, device=x_r.device)
+    out_i = torch.empty_like(out_r)
+    p = ctypes.c_void_p
+    err = lib.channelize_fused_raw3(
+        p(x_r.data_ptr()), p(x_i.data_ptr()), int(x_r.dtype == torch.int16),
+        float(in_scale), p(head_r.data_ptr()), p(head_i.data_ptr()),
+        p(g2.data_ptr()), p(At_r.data_ptr()), p(At_i.data_ptr()),
+        p(c2.data_ptr()), p(out_r.data_ptr()), p(out_i.data_ptr()),
+        int(out_dtype == torch.bfloat16), nf, M, K, n1, n2, int(bf16_b),
+        p(torch.cuda.current_stream(x_r.device).cuda_stream))
+    _build.check(err, "channelize_fused_raw3")
+    channelize_fused_raw3.launches += 1
+    return out_r, out_i
+
+
+def channelize_fused_raw3(plan: channelizer.PFBPlan, W: torch.Tensor,
+                          carry: cx.CX, x, *, factors: tuple[int, int],
+                          bf16_mxu: bool, out_dtype: torch.dtype
+                          ) -> tuple[cx.CX, tuple[torch.Tensor, torch.Tensor]]:
+    """One streaming channelizer step (critical sampling).
+
+    W: [K, M] polyphase weights; carry: CX [(K−1)·M] history; x: CX of
+    [n] float32 planes, or an (re, im) pair of int16 [n] planes
+    (dequantized ×1/32768). bf16_mxu rounds stage B's operands to bf16
+    (fast tier); out_dtype is float32 or bfloat16. Returns (new_carry,
+    (raw_r, raw_i) [n1, n/M, n2]). CPU tensors run the plain version,
+    CUDA tensors the kernel."""
+    M, K = plan.n_chan, plan.taps_per
+    n1, n2 = factors
+    if plan.hop != M:
+        raise ValueError("fused channelizer requires critical sampling")
+    if n1 * n2 != M or n2 % 128:
+        raise ValueError("factors must multiply to n_chan with n2 % 128 == 0")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("out_dtype must be float32 or bfloat16")
+    if isinstance(x, cx.CX):
+        x_r, x_i, in_scale, want = x.re, x.im, 0.0, torch.float32
+    elif isinstance(x, tuple) and len(x) == 2:
+        (x_r, x_i), in_scale, want = x, I16_SCALE, torch.int16
+    else:
+        raise TypeError("x must be a CX of float32 planes or an int16 pair")
+    dev = W.device
+    n = x_r.shape[-1]
+    for name, t, dt, shape in (("W", W, torch.float32, (K, M)),
+                               ("carry.re", carry.re, torch.float32,
+                                (plan.history,)),
+                               ("carry.im", carry.im, torch.float32,
+                                (plan.history,)),
+                               ("x re", x_r, want, (n,)),
+                               ("x im", x_i, want, (n,))):
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous {dt} {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if n % M:
+        raise ValueError("block length must be a multiple of n_chan")
+    h = plan.history
+    if in_scale:
+        new_carry = cx.CX(x_r[-h:].float() * in_scale,
+                          x_i[-h:].float() * in_scale)
+    else:
+        new_carry = cx.CX(x_r[-h:].clone(), x_i[-h:].clone())
+    args, kw = prepare(plan, W, carry, x_r, x_i, factors=factors,
+                       bf16_mxu=bf16_mxu, out_dtype=out_dtype)
+    if dev.type == "cpu":
+        raw = channelize_fused_plain(*args, **kw)
+    elif dev.type == "cuda":
+        raw = _launch(*args, **kw)
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    return new_carry, raw
+
+
+def prepare(plan: channelizer.PFBPlan, W: torch.Tensor, carry: cx.CX,
+            x_r: torch.Tensor, x_i: torch.Tensor, *,
+            factors: tuple[int, int], bf16_mxu: bool,
+            out_dtype: torch.dtype) -> tuple[tuple, dict]:
+    """The (args, kwargs) that `channelize_fused_plain` and the kernel take
+    for one step: fold taps, DIF tables, carry rows and [nf, M] views."""
+    M, K = plan.n_chan, plan.taps_per
+    n1, n2 = factors
+    nf = x_r.shape[-1] // M
+    g2 = W.reshape(-1).flip(0).reshape(K, M).contiguous()
+    At_r, At_i, c2 = _tables(M, n1, n2, bool(bf16_mxu), str(W.device))
+    args = (g2, At_r, At_i, c2, carry.re.reshape(K - 1, M),
+            carry.im.reshape(K - 1, M), x_r.reshape(nf, M),
+            x_i.reshape(nf, M))
+    kw = dict(n1=n1, n2=n2,
+              in_scale=I16_SCALE if x_r.dtype == torch.int16 else 0.0,
+              bf16_b=bool(bf16_mxu), out_dtype=out_dtype)
+    return args, kw
+
+
+channelize_fused_raw3.launches = 0

@@ -1,0 +1,103 @@
+"""Package-level properties of the PyTorch port: it imports no JAX, its
+kernel wrappers take their plain versions on CPU tensors without counting
+a launch, and its kernel build targets sm_90a into a git-ignored
+directory."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from supersdr_tpu_torch import _build
+from supersdr_tpu_torch.ops import channelizer, cx
+from supersdr_tpu_torch.ops.cuda import chain_tail, channelize_fused
+from supersdr_tpu_torch.runtime import chain, wideband
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("module", [
+    "supersdr_tpu_torch", "supersdr_tpu_torch.runtime.wideband",
+    "supersdr_tpu_torch.convert", "supersdr_tpu_torch.ops.cuda.chain_tail",
+    "supersdr_tpu_torch.ops.cuda.channelize_fused"])
+def test_imports_without_jax(module):
+    code = (f"import sys, importlib; importlib.import_module({module!r}); "
+            "bad = sorted(m for m in sys.modules "
+            "if m == 'jax' or m.startswith('jax.')); "
+            "assert not bad, bad; print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_wrappers_take_plain_path_on_cpu_without_counting():
+    cfg = wideband.WidebandConfig(fs_in=512 * 12_000, n_chan=512,
+                                  chunk_in=512 * 512, taps_per=4,
+                                  n_taps=129, **wideband.PROFILES["fast"])
+    p = wideband.make_params(cfg)
+    c0 = channelize_fused.channelize_fused_raw3.launches
+    t0 = chain_tail.chain_tail_fir.launches
+    rng = np.random.default_rng(0)
+    iq = (rng.normal(size=cfg.chunk_in)
+          + 1j * rng.normal(size=cfg.chunk_in)).astype(np.complex64) * 0.05
+    _, outs = wideband.process_n(cfg, p, wideband.init_state(cfg), [iq])
+    assert outs[0].device.type == "cpu"
+    assert bool(torch.isfinite(outs[0]).all())
+    assert channelize_fused.channelize_fused_raw3.launches == c0
+    assert chain_tail.chain_tail_fir.launches == t0
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on a CUDA card is refused,
+    never moved."""
+    plan = channelizer.PFBPlan(n_chan=512, taps_per=4, hop=512)
+    W = channelizer.taps_matrix(plan, channelizer.design(512, 4)[1],
+                                device="meta")
+    carry = cx.zeros((plan.history,), device="meta")
+    x = cx.zeros((512 * 8,), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        channelize_fused.channelize_fused_raw3(
+            plan, W, carry, x, factors=(2, 256), bf16_mxu=False,
+            out_dtype=torch.float32)
+
+
+def test_build_targets_sm90a_into_ignored_dir():
+    assert "arch=compute_90a,code=sm_90a" in _build.FLAGS
+    assert _build.FLAGS[_build.FLAGS.index("arch=compute_90a,code=sm_90a")
+                        - 1] == "-gencode"
+    lib = _build.library_path()
+    assert lib.parent == _build.BUILD_DIR
+    rel = _build.BUILD_DIR.relative_to(REPO).as_posix() + "/"
+    ignored = (REPO / ".gitignore").read_text().split()
+    assert rel in ignored
+    assert {p.name for p in _build.sources()} == {"channelize_fused.cu",
+                                                 "chain_tail.cu"}
+    # the source hash names the library, so an edited source rebuilds
+    assert _build.source_hash() in lib.name
+
+
+def test_c_signatures_cover_every_entry_point():
+    """Every extern "C" entry in csrc/ has declared ctypes argument types,
+    one per C parameter."""
+    import re
+    decls = {}
+    for src in _build.sources():
+        text = src.read_text()
+        body = text[text.index('extern "C" {'):]
+        for m in re.finditer(r"^int (\w+)\(([^)]*)\)", body, re.M):
+            params = [a for a in m.group(2).split(",") if a.strip()]
+            decls[m.group(1)] = len(params)
+    assert decls.keys() == _build.SIGNATURES.keys()
+    for name, n in decls.items():
+        assert len(_build.SIGNATURES[name]) == n, name
+
+
+def test_chain_state_matches_tail_rows():
+    ccfg = chain.ChainConfig(chunk=512, os_block=512, n_taps=129)
+    st = chain.init_state(ccfg, (256,))
+    assert st.os_carry.re.shape == (256, 128)
+    assert st.interp_carry.shape == (256, ccfg.interp_plan.per - 1)
+    assert float(st.agc.peak_db[0]) == -120.0
