@@ -6,16 +6,31 @@ Run from the repository root with no arguments:
 
 Phases, each printed as it runs; any failure exits non-zero:
   1. card identity (torch / CUDA versions, nvidia-smi name and power limit);
-  2. build both kernels from supersdr_tpu_torch/csrc with nvcc;
+  2. build the four kernels from supersdr_tpu_torch/csrc with nvcc (one
+     process a source, in parallel);
   3. each kernel's wrapper against its plain PyTorch version on the card,
      at the MID shape (2560 channels, 512 frames a chunk): the channelizer
-     on both tiers with float32 and int16 input, the tail on AM (both
-     tiers), USB and NBFM; plus ragged last tiles (13 and 640 frames);
-  4. the port's main path, `wideband.process_n`, at the HEADLINE shape
+     on both tiers with float32 and int16 input, the FIR tail on AM (both
+     tiers), USB, NBFM and with AGC hang, the fold, and the non-FIR tail on
+     AM with hang off and on (500 and 40 ms), USB, NBFM (FM carriers,
+     manual AGC) and with the power row; plus ragged last tiles (13 frames
+     for the channelizer and the fold, 640 for both tails);
+  4. the planar main path, `wideband.process_n`, at the HEADLINE shape
      (2560 channels, 16128 frames a chunk) on both profiles with float32
-     and int16 chunks: launch counts and audio checks; then ms a chunk,
-     and each kernel against and beside its plain version at HEADLINE;
-  5. row alignment: two AM carriers come out as the two loudest RSSI rows.
+     and int16 chunks: launch counts and audio checks; then the chan-major
+     main path (CHANMAJOR: the same shape, `time_major=False`,
+     `pallas_fold=True`, the fft passband and the tail kernel): one fold
+     and one non-FIR tail launch a chunk, audio [2560, 64512]; then ms a
+     chunk, input Msamples/s, each kernel against and beside its plain
+     version at HEADLINE, and where CHANMAJOR's device time goes;
+  5. row alignment on both main paths: two AM carriers come out as the two
+     loudest RSSI rows;
+  6. AGC hang and squelch on the planar HEADLINE path (launch counts
+     unchanged), and the chain's own entry points: `chain.process` on 2560
+     receivers with the tail kernel, `chain.run_offline` for one 12 kHz and
+     one 20.25 kHz receiver, and a MID chan-major run through the fused
+     channelizer and the tail kernel, each held against the same call on
+     the CPU.
 The last lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. It exits non-zero, printing no result,
 when no CUDA device is present. It imports nothing of JAX.
@@ -34,12 +49,21 @@ import torch
 MID = dict(fs_in=30_720_000, n_chan=2560, chunk_in=2560 * 512, mode="AM",
            taps_per=8, n_taps=257, audio_rate=48_000)
 HEADLINE = dict(MID, chunk_in=2560 * (16384 - 256))
+# the chan-major tier at the headline shape: the fold kernel, cuFFT, the
+# overlap-save passband and the non-FIR tail kernel
+CHANMAJOR = dict(time_major=False, pallas_fold=True, tail_impl="pallas",
+                 passband_impl="fft")
 
 # kernel vs plain on the card. Both compute in float32 with other
-# summation orders (the tail's plain version also scans in tiles where the
-# kernel is sequential); the bf16 tier's raw planes are rounded to bf16
-# on output, where an order-level difference can flip one bf16 ulp.
-TOL_SNR_DB = {"chan_fast": 50.0, "chan_quality": 100.0, "tail": 80.0}
+# summation orders (the tails' plain versions also scan in tiles where the
+# kernels are sequential; the DC pole and the AGC's exp amplify that); the
+# bf16 tier's raw planes are rounded to bf16 on output, where an
+# order-level difference can flip one bf16 ulp. The fold sums 8 float32
+# products in the plain version's order. The chain and the chan-major
+# tier on the card against the same call on the CPU: float32 with other
+# FFT and summation orders, the tail bound again.
+TOL_SNR_DB = {"chan_fast": 50.0, "chan_quality": 100.0, "tail": 80.0,
+              "fold": 110.0, "cpu": 80.0}
 
 
 def _snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
@@ -110,8 +134,9 @@ def _chan_case(cfg, params, gen, *, i16: bool, device,
 
 
 def _tail_case(cfg, params, gen, *, device, raw=None):
-    """(wrapper call, plain call) of the tail on raw planes (random ones
-    unless given), random history and a fresh state."""
+    """(wrapper call, plain call) of the FIR tail on raw planes (random
+    ones unless given), random history and a fresh state; the config's
+    AGC hang window when it has one."""
     from supersdr_tpu_torch.ops import fir_matmul
     from supersdr_tpu_torch.ops.cuda import chain_tail as ct
     from supersdr_tpu_torch.runtime import chain
@@ -135,9 +160,73 @@ def _tail_case(cfg, params, gen, *, device, raw=None):
     args = (*raw, *head, st, chain._tail_params_vec(params.chain, ccfg),
             params.chain.W_tailpass, params.chain.P_interp)
     kw = dict(n_taps=cfg.n_taps, B=B, n_prev=n_prev, tile_t=tile,
-              demod=chain._tail_demod(ccfg), fir_bf16=fast, rs_bf16=False)
+              demod=chain._tail_demod(ccfg), fir_bf16=fast, rs_bf16=False,
+              hang_window=chain._tail_hang_window(ccfg))
     return (lambda: ct.chain_tail_fir(*args, **kw),
             lambda: ct.chain_tail_plain(*args, **kw))
+
+
+def _fold_case(cfg, params, gen, *, device, nf: int | None = None,
+               x=None):
+    """(wrapper call, plain call) of the fold on a random carry and a
+    random chunk of nf frames (default: the config's) unless x is given;
+    outputs as real views of the complex fold."""
+    from supersdr_tpu_torch.ops import cx
+    from supersdr_tpu_torch.ops.cuda import pfb_fold as pf
+    from supersdr_tpu_torch.runtime import wideband as wb
+    plan = wb.pfb_plan(cfg)
+    M, K = cfg.n_chan, cfg.taps_per
+    n = (nf or cfg.chunk_per_chan) * M
+    if x is None:
+        x = cx.CX(*(torch.randn(n, generator=gen, device=device) * 0.05
+                    for _ in range(2)))
+    carry = cx.CX(*(torch.randn(plan.history, generator=gen,
+                                device=device) * 0.05 for _ in range(2)))
+    G = params.W_pfb.reshape(-1).flip(0).reshape(K, M).contiguous()
+    return (lambda: (torch.view_as_real(pf.pfb_fold(plan, G, carry, x)),),
+            lambda: (torch.view_as_real(pf.pfb_fold_plain(
+                G, carry.re, carry.im, x.re, x.im)),))
+
+
+def _fm_carriers(C: int, nf: int, gen, device) -> torch.Tensor:
+    """[C, nf] complex: one Carson-safe FM carrier a channel over noise."""
+    t = torch.arange(nf, device=device, dtype=torch.float64) / 12_000.0
+    g = 300.0 + 700.0 * torch.rand(C, 1, generator=gen, device=device,
+                                   dtype=torch.float64)
+    beta = 1.0 + 1.5 * torch.rand(C, 1, generator=gen, device=device,
+                                  dtype=torch.float64)
+    ph = beta * torch.sin(2 * np.pi * g * t)
+    z = 0.4 * torch.exp(1j * ph) + 0.01 * torch.randn(
+        C, nf, generator=gen, device=device, dtype=torch.complex128)
+    return z.to(torch.complex64)
+
+
+def _am_case(C: int, nf: int, gen, *, device, mode: str = "AM",
+             agc: dict | None = None, hang_ms: float | None = None,
+             accum: bool = False, y=None):
+    """(wrapper call, plain call) of the non-FIR tail on y [C, nf]
+    (chain-major complex, random noise or FM carriers unless given) read
+    through strided views and written chain-major, as the chain's tail
+    tier runs it; a fresh state."""
+    from supersdr_tpu_torch.ops.cuda import chain_tail as ct
+    from supersdr_tpu_torch.runtime import chain
+    ccfg = chain.ChainConfig(mode=mode, chunk=nf, os_block=nf, n_taps=257,
+                             hang_enabled=hang_ms is not None,
+                             hang_ms=hang_ms or 500.0)
+    params = chain.make_params(ccfg, agc_kwargs=dict(
+        agc or {}, hang=hang_ms is not None), device=device)
+    if y is None:
+        y = (_fm_carriers(C, nf, gen, device) if mode == "NBFM" else
+             torch.randn(C, nf, generator=gen, device=device,
+                         dtype=torch.complex64) * 0.05)
+    st = chain._state_rows(ccfg, chain.init_state(ccfg, (C,), device=device))
+    args = (y.real.T, y.imag.T, st, chain._tail_params_vec(params, ccfg),
+            params.P_interp)
+    kw = dict(tile_t=chain._tail_tile(nf, 257), demod=chain._tail_demod(ccfg),
+              accum_pow=accum, hang_window=chain._tail_hang_window(ccfg),
+              audio_layout="chan")
+    return (lambda: ct.chain_tail_am(*args, **kw),
+            lambda: ct.chain_tail_am_plain(*args, **kw))
 
 
 def _compare(name: str, label: str, kernel, plain, tol: float, device,
@@ -165,8 +254,11 @@ TAIL_CASES = (("fast", "AM", None), ("quality", "AM", None),
 def phase_kernels(shape: dict, device, err: dict, seed: int = 7) -> None:
     """Each kernel's wrapper against its plain version on the same inputs:
     the channelizer on both tiers with f32 and i16 input, and with a
-    ragged last block of frames (13 frames); the tail on AM (both tiers),
-    USB and NBFM, and with a ragged last time tile (640 frames)."""
+    ragged last block of frames (13 frames); the FIR tail on AM (both
+    tiers), USB, NBFM and AM with hang, and with a ragged last time tile
+    (640 frames); the fold, also on 13 frames; the non-FIR tail on AM with
+    hang off and on (500 and 40 ms), USB, NBFM on FM carriers with manual
+    AGC, with the power row, and on 640 frames."""
     from supersdr_tpu_torch.runtime import wideband as wb
     gen = torch.Generator(device=device).manual_seed(seed)
     for prof in ("fast", "quality"):
@@ -182,12 +274,55 @@ def phase_kernels(shape: dict, device, err: dict, seed: int = 7) -> None:
     ragged = dict(shape, chunk_in=shape["n_chan"] * 640)
     cases = [(shape, c) for c in TAIL_CASES] + [
         (ragged, ("fast", "AM", None)), (ragged, ("quality", "USB", None))]
+    cases.append((shape, ("quality", "AM hang 500 ms", dict(hang=True))))
     for shp, (prof, mode, agc) in cases:
-        cfg = wb.WidebandConfig(**dict(shp, mode=mode), **wb.PROFILES[prof])
+        hang = "hang" in mode
+        cfg = wb.WidebandConfig(**dict(shp, mode=mode.split()[0],
+                                       hang_enabled=hang),
+                                **wb.PROFILES[prof])
         params = wb.make_params(cfg, device=device, agc_kwargs=agc)
         _compare("chain_tail", f"{prof} {mode} nf={cfg.chunk_per_chan}",
                  *_tail_case(cfg, params, gen, device=device),
                  TOL_SNR_DB["tail"], device, err)
+    cfg = wb.WidebandConfig(**shape, **CHANMAJOR)
+    params = wb.make_params(cfg, device=device)
+    for nf in (None, 13):
+        _compare("pfb_fold", f"nf={nf or cfg.chunk_per_chan}",
+                 *_fold_case(cfg, params, gen, device=device, nf=nf),
+                 TOL_SNR_DB["fold"], device, err)
+    C, nf = shape["n_chan"], shape["chunk_in"] // shape["n_chan"]
+    for label, kw in (("AM", {}), ("AM hang 500 ms", dict(hang_ms=500.0)),
+                      ("AM hang 40 ms", dict(hang_ms=40.0)),
+                      ("USB", dict(mode="USB")),
+                      ("NBFM manual AGC", dict(mode="NBFM",
+                                               agc=dict(on=False))),
+                      ("AM power row", dict(accum=True)),
+                      ("USB hang 40 ms", dict(mode="USB", hang_ms=40.0,
+                                              nf=640))):
+        kw = dict(kw)
+        n = kw.pop("nf", nf)
+        _compare("chain_tail_am", f"{label} nf={n}",
+                 *_am_case(C, n, gen, device=device, **kw),
+                 TOL_SNR_DB["tail"], device, err)
+
+
+def _wrappers() -> dict:
+    """Each kernel's wrapper by its name in the JSON summary."""
+    from supersdr_tpu_torch.ops.cuda import chain_tail as ct
+    from supersdr_tpu_torch.ops.cuda import channelize_fused as cf
+    from supersdr_tpu_torch.ops.cuda import pfb_fold as pf
+    return {"channelize_fused": cf.channelize_fused_raw3,
+            "chain_tail": ct.chain_tail_fir, "pfb_fold": pf.pfb_fold,
+            "chain_tail_am": ct.chain_tail_am}
+
+
+def _reset_counts() -> None:
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def _counts() -> dict:
+    return {name: w.launches for name, w in _wrappers().items()}
 
 
 def _headline_inputs(cfg, gen, device):
@@ -214,8 +349,7 @@ def phase_main_path(shape: dict, device, seed: int = 1) -> dict:
         runs[prof] = (cfg, wb.make_params(cfg, device=device),
                       *_headline_inputs(cfg, gen, device))
     L = 4
-    cf.channelize_fused_raw3.launches = 0
-    ct.chain_tail_fir.launches = 0
+    _reset_counts()
     for prof, (cfg, params, f32, i16) in runs.items():
         for kind, chunks in (("f32", f32), ("i16", i16)):
             before = (cf.channelize_fused_raw3.launches,
@@ -236,8 +370,9 @@ def phase_main_path(shape: dict, device, seed: int = 1) -> dict:
             if grew != (len(chunks), len(chunks)) or not shape_ok \
                     or not finite or min(mean_abs) <= 0:
                 raise AssertionError(f"main path {prof} {kind} failed")
-    launches = {"channelize_fused": cf.channelize_fused_raw3.launches,
-                "chain_tail": ct.chain_tail_fir.launches}
+    launches = _counts()
+    if launches["pfb_fold"] or launches["chain_tail_am"]:
+        raise AssertionError(f"planar main path ran another tier: {launches}")
     return {"launches": launches, "runs": runs}
 
 
@@ -282,11 +417,94 @@ def phase_timing(runs: dict, err: dict, iters: int = 5,
     return times
 
 
-def phase_rows(shape: dict, device, rows=(7, 1300), seed: int = 31) -> None:
-    """AM carriers at channel_freqs(cfg)[r] must be the loudest RSSI rows."""
+def phase_chanmajor(shape: dict, device, seed: int = 2) -> dict:
+    """The chan-major main path (CHANMAJOR) through process_n, 2 float32
+    chunks made on the card: one fold and one non-FIR tail launch a chunk,
+    no other kernel; audio [n_chan, frames·4], finite and non-zero."""
     from supersdr_tpu_torch.ops import cx
     from supersdr_tpu_torch.runtime import wideband as wb
-    cfg = wb.WidebandConfig(**shape, **wb.PROFILES["fast"])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cfg = wb.WidebandConfig(**shape, **CHANMAJOR)
+    params = wb.make_params(cfg, device=device)
+    n = cfg.chunk_in
+    chunks = [cx.CX(*(torch.randn(n, generator=gen, device=device) * 0.05
+                      for _ in range(2))) for _ in range(2)]
+    _reset_counts()
+    _, outs = wb.process_n(cfg, params, wb.init_state(cfg, device=device),
+                           chunks)
+    _sync(device)
+    launches = _counts()
+    shape_ok = all(tuple(a.shape) == (cfg.n_chan, cfg.chunk_per_chan * 4)
+                   for a in outs)
+    finite = all(bool(torch.isfinite(a).all()) for a in outs)
+    mean_abs = [float(a.abs().mean()) for a in outs]
+    print(f"main path chanmajor f32: launches {launches} for "
+          f"{len(chunks)} chunks; audio {tuple(outs[0].shape)} "
+          f"finite={finite} mean|a|={mean_abs}", flush=True)
+    want = {"channelize_fused": 0, "chain_tail": 0, "pfb_fold": len(chunks),
+            "chain_tail_am": len(chunks)}
+    if launches != want or not shape_ok or not finite or min(mean_abs) <= 0:
+        raise AssertionError("chan-major main path failed")
+    return {"launches": launches, "cfg": cfg, "params": params,
+            "chunks": chunks}
+
+
+def phase_chanmajor_timing(run: dict, err: dict, iters: int = 5,
+                           seed: int = 4) -> dict:
+    """ms a chunk of the chan-major process_n; each new kernel against and
+    beside its plain version at HEADLINE (the fold on a chunk, the tail on
+    the chunk's passband y); then where the device time goes
+    (torch.profiler over two process_n calls, after a warm-up one)."""
+    from supersdr_tpu_torch.runtime import wideband as wb
+    cfg, params, chunks = run["cfg"], run["params"], run["chunks"]
+    dev = chunks[0].re.device
+    st = [wb.init_state(cfg, device=dev)]
+
+    def step():
+        st[0], outs = wb.process_n(cfg, params, st[0], chunks)
+        return outs[-1].abs().mean()
+    ms = cuda_ms(step, iters) / len(chunks)
+    print(f"time main path chanmajor f32: {ms:.3f} ms/chunk, "
+          f"{cfg.chunk_in / (ms * 1e-3) / 1e6:.1f} Msamples/s input",
+          flush=True)
+    times = {"main_chanmajor_f32": ms}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kernel, plain = _fold_case(cfg, params, gen, device=dev, x=chunks[0])
+    _compare("pfb_fold", f"nf={cfg.chunk_per_chan}", kernel, plain,
+             TOL_SNR_DB["fold"], dev, err)
+    times["pfb_fold"] = (cuda_ms(kernel, iters), cuda_ms(plain, 2))
+    _, out = wb.process(cfg, params, wb.init_state(cfg, device=dev),
+                        chunks[0])
+    y = torch.complex(out.baseband.re, out.baseband.im)       # [C, nf]
+    kernel, plain = _am_case(cfg.n_chan, cfg.chunk_per_chan, gen,
+                             device=dev, y=y)
+    _compare("chain_tail_am", f"AM nf={cfg.chunk_per_chan}", kernel, plain,
+             TOL_SNR_DB["tail"], dev, err)
+    times["chain_tail_am"] = (cuda_ms(kernel, iters), cuda_ms(plain, 2))
+    for name in ("pfb_fold", "chain_tail_am"):
+        print(f"time {name}: kernel {times[name][0]:.3f} ms, "
+              f"plain {times[name][1]:.3f} ms", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+    print("profile chanmajor (2 calls, 4 chunks):", flush=True)
+    print(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                    row_limit=12), flush=True)
+    return times
+
+
+def phase_rows(shape: dict, device, tier: dict | None = None,
+               rows=(7, 1300), seed: int = 31) -> None:
+    """AM carriers at channel_freqs(cfg)[r] must be the loudest RSSI rows
+    (planar fast profile unless another tier is given)."""
+    from supersdr_tpu_torch.ops import cx
+    from supersdr_tpu_torch.runtime import wideband as wb
+    cfg = wb.WidebandConfig(**shape, **(tier or wb.PROFILES["fast"]))
     params = wb.make_params(cfg, device=device)
     st = wb.init_state(cfg, device=device)
     freqs = wb.channel_freqs(cfg)
@@ -308,11 +526,128 @@ def phase_rows(shape: dict, device, rows=(7, 1300), seed: int = 31) -> None:
                                                     z_i.float()))
     rssi = out.rssi[:, -1]
     top = sorted(int(i) for i in torch.argsort(rssi, descending=True)[:2])
-    print(f"rows: loudest RSSI rows {top} "
+    label = "planar" if cfg.time_major else "chanmajor"
+    print(f"rows {label}: loudest RSSI rows {top} "
           f"({[round(float(rssi[i]), 2) for i in top]} dB), "
           f"carriers at rows {sorted(rows)}", flush=True)
     if top != sorted(rows):
         raise AssertionError("row alignment failed")
+
+
+def phase_controls(shape: dict, device, seed: int = 5) -> None:
+    """AGC hang and squelch on the planar HEADLINE path (fast profile): one
+    run each, one channelizer and one FIR-tail launch a chunk as without
+    them; the squelch must close on a quiet chunk after a loud one."""
+    from supersdr_tpu_torch.ops import cx
+    from supersdr_tpu_torch.runtime import wideband as wb
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = shape["chunk_in"]
+    chunks = [cx.CX(*(torch.randn(n, generator=gen, device=device) * lvl
+                      for _ in range(2))) for lvl in (0.05, 0.005, 0.005)]
+    for label, extra, pkw in (
+            ("hang", dict(hang_enabled=True),
+             dict(agc_kwargs=dict(hang=True))),
+            ("squelch", dict(squelch_enabled=True),
+             dict(squelch_kwargs=dict(enabled=True, thresh_db=-75.0)))):
+        cfg = wb.WidebandConfig(**shape, **extra, **wb.PROFILES["fast"])
+        params = wb.make_params(cfg, device=device, **pkw)
+        _reset_counts()
+        st, outs = wb.process_n(cfg, params, wb.init_state(cfg, device=device),
+                                chunks)
+        _sync(device)
+        launches = _counts()
+        finite = all(bool(torch.isfinite(a).all()) for a in outs)
+        opened = float(st.chain.squelch.open_.mean())
+        print(f"controls {label}: launches {launches} for {len(chunks)} "
+              f"chunks; finite={finite}; squelch open share {opened:.3f}",
+              flush=True)
+        want = {"channelize_fused": len(chunks), "chain_tail": len(chunks),
+                "pfb_fold": 0, "chain_tail_am": 0}
+        if launches != want or not finite \
+                or (label == "squelch" and opened != 0.0):
+            raise AssertionError(f"planar {label} failed")
+
+
+def _close_to_cpu(label: str, got, ref, tol: float) -> None:
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    snr = 20 * np.log10(np.linalg.norm(ref)
+                        / max(np.linalg.norm(got - ref), 1e-300))
+    print(f"{label}: card vs CPU snr {snr:.2f} dB (tol {tol} dB), "
+          f"shape {got.shape}", flush=True)
+    if got.shape != ref.shape or not snr >= tol:
+        raise AssertionError(f"{label} disagrees with the CPU")
+
+
+def phase_chain(device, seed: int = 6) -> None:
+    """The chain's own entry points on the card, each against the same call
+    on the CPU: `chain.process` on 2560 receivers with the tail kernel
+    (one launch), `chain.run_offline` for one 12 kHz AM receiver and one
+    20.25 kHz receiver (rational resampling), and a MID chan-major run
+    through the fused channelizer and the tail kernel."""
+    from supersdr_tpu_torch.runtime import chain
+    from supersdr_tpu_torch.runtime import wideband as wb
+    rng = np.random.default_rng(seed)
+    cpu = torch.device("cpu")
+    tol = TOL_SNR_DB["cpu"]
+
+    def am_iq(shape, fs):
+        t = np.arange(shape[-1]) / fs
+        z = 0.3 * (1 + 0.6 * np.sin(2 * np.pi * 700.0 * t)) * np.exp(
+            2j * np.pi * rng.uniform(-500, 500, size=shape[:-1] + (1,)) * t)
+        return (z + 0.01 * (rng.normal(size=shape) + 1j * rng.normal(
+            size=shape))).astype(np.complex64)
+
+    ccfg = chain.ChainConfig(tail_impl="pallas")
+    offs = np.linspace(-400.0, 400.0, 2560)
+    iq = am_iq((2560, ccfg.chunk), ccfg.iq_rate)
+    outs = {}
+    for key, dev in (("card", device), ("cpu", cpu)):
+        p = chain.make_params(ccfg, freq_offset_hz=offs, device=dev)
+        _reset_counts()
+        _, out = chain.process(ccfg, p, chain.init_state(ccfg, (2560,),
+                                                         device=dev), iq)
+        _sync(dev)
+        outs[key] = (out.audio.cpu().numpy(), _counts())
+    print(f"chain.process 2560 receivers: launches {outs['card'][1]}",
+          flush=True)
+    if outs["card"][1]["chain_tail_am"] != 1:
+        raise AssertionError("chain.process did not run the tail kernel")
+    _close_to_cpu("chain.process 2560 receivers", outs["card"][0],
+                  outs["cpu"][0], tol)
+    for rate, chunk in ((12_000, 2048), (20_250, 2025)):
+        cfg = chain.ChainConfig(iq_rate=rate, chunk=chunk, os_block=chunk)
+        x = am_iq((3 * chunk + 777,), rate)
+        got = chain.run_offline(cfg, chain.make_params(cfg, device=device),
+                                x)[1]
+        ref = chain.run_offline(cfg, chain.make_params(cfg), x)[1]
+        _close_to_cpu(f"chain.run_offline {rate} Hz", got, ref, tol)
+    cfg = wb.WidebandConfig(**MID, chan_impl="mxu2fused",
+                            passband_impl="matmul", tail_impl="pallas")
+    x = (rng.normal(size=cfg.chunk_in) + 1j * rng.normal(size=cfg.chunk_in)
+         ).astype(np.complex64) * 0.05
+    res = {}
+    for key, dev in (("card", device), ("cpu", cpu)):
+        _reset_counts()
+        _, out = wb.process(cfg, wb.make_params(cfg, device=dev),
+                            wb.init_state(cfg, device=dev), x)
+        _sync(dev)
+        res[key] = (out.audio.cpu().numpy(), _counts())
+    print(f"chan-major mxu2fused MID: launches {res['card'][1]}", flush=True)
+    if res["card"][1]["channelize_fused"] != 1 \
+            or res["card"][1]["chain_tail_am"] != 1:
+        raise AssertionError("chan-major mxu2fused missed a kernel")
+    _close_to_cpu("chan-major mxu2fused MID", res["card"][0],
+                  res["cpu"][0], tol)
+
+
+def _summary(name: str, source: str, replaces: str, launches: int,
+             err: dict, times: tuple) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"supersdr_tpu_torch/csrc/{source}",
+            "replaces": f"supersdr_tpu/ops/pallas/{replaces}",
+            "launches": launches, "max_abs_err": err[name],
+            "ms": times[0], "plain_ms": times[1]}
 
 
 def main() -> int:
@@ -336,23 +671,26 @@ def main() -> int:
     err: dict = {}
     phase_kernels(MID, dev, err)
     main_path = phase_main_path(HEADLINE, dev)
+    chan = phase_chanmajor(HEADLINE, dev)
     times = phase_timing(main_path["runs"], err)
+    times.update(phase_chanmajor_timing(chan, err))
     phase_rows(HEADLINE, dev)
+    phase_rows(HEADLINE, dev, CHANMAJOR)
+    phase_controls(HEADLINE, dev)
+    phase_chain(dev)
     kernels = [
-        {"name": "channelize_fused", "route": "cuda",
-         "source": "supersdr_tpu_torch/csrc/channelize_fused.cu",
-         "replaces": "supersdr_tpu/ops/pallas/channelize_fused.py:61",
-         "launches": main_path["launches"]["channelize_fused"],
-         "max_abs_err": err["channelize_fused"],
-         "ms": times["channelize_fused_fast"][0],
-         "plain_ms": times["channelize_fused_fast"][1]},
-        {"name": "chain_tail", "route": "cuda",
-         "source": "supersdr_tpu_torch/csrc/chain_tail.cu",
-         "replaces": "supersdr_tpu/ops/pallas/chain_tail.py:332",
-         "launches": main_path["launches"]["chain_tail"],
-         "max_abs_err": err["chain_tail"],
-         "ms": times["chain_tail_fast"][0],
-         "plain_ms": times["chain_tail_fast"][1]},
+        _summary("channelize_fused", "channelize_fused.cu",
+                 "channelize_fused.py:61",
+                 main_path["launches"]["channelize_fused"], err,
+                 times["channelize_fused_fast"]),
+        _summary("chain_tail", "chain_tail.cu", "chain_tail.py:332",
+                 main_path["launches"]["chain_tail"], err,
+                 times["chain_tail_fast"]),
+        _summary("pfb_fold", "pfb_fold.cu", "pfb_fold.py:36",
+                 chan["launches"]["pfb_fold"], err, times["pfb_fold"]),
+        _summary("chain_tail_am", "chain_tail.cu", "chain_tail.py:304",
+                 chan["launches"]["chain_tail_am"], err,
+                 times["chain_tail_am"]),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,14 +5,14 @@ its layout (`ops/`, `ops/cuda/` for the hand-written Hopper kernels that
 replace `ops/pallas/`, `runtime/`) and its public names, so each module's
 counterpart is easy to find. It imports `torch` and never `jax`.
 
-Slice 1 holds the wideband main path: `runtime.wideband.process_n` on the
-planar tier (fused channelizer → FIR-fused chain tail). Everything else
-raises `NotImplementedError` naming the ROADMAP item that will bring it.
-
-The two framework-free numpy modules of the reference that the slice
-needs (`supersdr_tpu.ops.firdesign` and `supersdr_tpu.ops.passband`) are
-imported as they are; neither `supersdr_tpu/__init__.py` nor
-`supersdr_tpu/ops/__init__.py` imports JAX.
+It runs the receiver chain (`runtime.chain.process` / `run_offline`, every
+mode, passband, resampler and control) and the wideband pipeline's planar,
+chan-major and fallback tiers (`runtime.wideband.process` / `process_n` /
+`process_many` / `process_i16`) on four hand-written kernels. What it does
+not run yet raises `NotImplementedError` naming the ROADMAP item that will
+bring it. It imports nothing of the JAX package: the two framework-free
+design modules it shares with it (`ops/firdesign`, `ops/passband`) are
+carried over.
 """
 
 __all__: list[str] = []

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
+`nvcc` compiles every `csrc/*.cu` to an object, one process a source, all
+started together, and links them into one shared library with a plain C
 interface, which `ctypes` loads. The library lands in `build/` inside the
 package (git-ignored), named by a hash of the sources and the flags, so an
 edited source rebuilds at first use and an unchanged one loads at once.
@@ -22,22 +23,28 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 GENCODE = "arch=compute_90a,code=sm_90a"
-FLAGS = ["-gencode", GENCODE, "-std=c++17", "-O3", "-shared",
-         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+FLAGS = ["-gencode", GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_long
 
 # C entry points and their argument types (every pointer and the stream as
-# c_void_p, so none is cut to 32 bits); each returns a cudaError_t.
+# c_void_p, every stride as c_long, so none is cut to 32 bits); each returns
+# a cudaError_t or a plain int.
 SIGNATURES = {
     "channelize_fused_tile": [_I, _I],
     "channelize_fused_raw3": [_P, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P,
                               _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "chain_tail_channels_per_block": [],
     "chain_tail_fir": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
-                       _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P],
+                       _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P],
+    "chain_tail_am": [_P, _P, _L, _L, _I, _I, _P, _I, _I, _P, _I, _I, _I,
+                      _I, _P, _P, _P, _L, _L, _P],
+    "pfb_fold_max_taps": [],
+    "pfb_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -67,8 +74,27 @@ def nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def nvcc_command(out: Path) -> list[str]:
-    return [nvcc(), *FLAGS, "-o", str(out), *map(str, sources())]
+def compile_command(src: Path, obj: Path) -> list[str]:
+    return [nvcc(), *FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(objs: list[Path], out: Path) -> list[str]:
+    return [nvcc(), "-gencode", GENCODE, "-shared", "-o", str(out),
+            *map(str, objs)]
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise if any fails. Returns their
+    output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{o}")
+    return "".join(outs)
 
 
 def build() -> tuple[Path, str]:
@@ -79,14 +105,19 @@ def build() -> tuple[Path, str]:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{source_hash()}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources()]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        log = _run_all([compile_command(s, o)
+                        for s, o in zip(sources(), objs)])
+        log += _run_all([link_command(objs, tmp)])
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)      # atomic: a concurrent loader sees all or none
-    return out, proc.stdout + proc.stderr
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return out, log
 
 
 @lru_cache(maxsize=1)

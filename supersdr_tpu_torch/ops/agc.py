@@ -1,8 +1,10 @@
-"""AGC parameters and state (KiwiSDR `SET agc=…` surface).
+"""AGC with the KiwiSDR parameter surface (`SET agc=…`).
 
-Counterpart of `supersdr_tpu/ops/agc.py`'s parameter and state types;
-the AGC itself (peak tracker, kneed gain law, attack one-pole) runs
-inside the chain-tail kernel, `ops/cuda/chain_tail.py`.
+Counterpart of `supersdr_tpu/ops/agc.py`: envelope → dB, a peak tracker
+with instant attack and a linear-in-dB decay (a max-plus recurrence), an
+optional hang (a causal sliding-window max, exact), the kneed gain law,
+and a one-pole smoother on the gain. The fused chain tail
+(`ops/cuda/chain_tail.py`) runs the same law inside its kernel.
 """
 
 from __future__ import annotations
@@ -12,12 +14,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from supersdr_tpu_torch.ops import scans
+
 MANUAL_UNITY_DB = 50.0
 ENV_FLOOR = 1e-9
 
 
 class AGCParams(NamedTuple):
-    """Runtime AGC parameters, 0-d float32 tensors."""
+    """Runtime AGC parameters, float32 tensors (0-d, or per slot)."""
     on: torch.Tensor                    # 1 = auto, 0 = manual gain
     hang: torch.Tensor                  # 1 = hang enabled
     thresh_db: torch.Tensor             # knee, dBFS
@@ -64,3 +68,48 @@ def init_state(batch_shape: tuple[int, ...] = (), device=None) -> AGCState:
 
 def hang_samples(fs: float, hang_ms: float = 500.0) -> int:
     return max(1, int(round(hang_ms * 1e-3 * fs)))
+
+
+def apply(params: AGCParams, state: AGCState, audio: torch.Tensor,
+          hang_window: int = 1, decimation: int = 1
+          ) -> tuple[AGCState, torch.Tensor]:
+    """AGC over one block, audio [*batch, n] (complex in IQ mode: the
+    envelope is |audio|). `hang_window` samples (1 = off); `decimation`
+    runs the ballistics on per-group envelope peaks (n % decimation ==
+    0) and repeats the gain back to the sample rate."""
+    env = audio.abs().float()
+    n = env.shape[-1]
+    if decimation > 1:
+        if n % decimation:
+            raise ValueError("block length must be divisible by decimation")
+        env = env.reshape(*env.shape[:-1], n // decimation,
+                          decimation).amax(-1)
+        if hang_window > 1:
+            hang_window = max(1, hang_window // decimation)
+    env_db = 20.0 * torch.log10(torch.clamp_min(env, ENV_FLOOR))
+    d = -params.decay_per_sample_db * decimation
+    if d.ndim == 0:
+        peak_db = scans.maxplus_scan_const(d, env_db, state.peak_db)
+    else:
+        peak_db = scans.maxplus_scan(d, env_db, state.peak_db)
+    if hang_window > 1:
+        held = scans.sliding_max(peak_db, hang_window)
+        peak_db = torch.where(params.hang > 0, held, peak_db)
+    max_gain = params.target_db - params.thresh_db
+    above = (params.target_db - peak_db) + params.slope_db * (
+        (peak_db - params.thresh_db)
+        / torch.clamp_min(-params.thresh_db, 1e-6))
+    auto_gain = torch.where(peak_db <= params.thresh_db, max_gain, above)
+    gain_db = torch.where(params.on > 0, auto_gain,
+                          params.man_gain_db - MANUAL_UNITY_DB)
+    attack = params.attack_coeff ** decimation
+    if attack.ndim == 0:
+        gain_db = scans.linear_scan_const(attack, (1.0 - attack) * gain_db,
+                                          state.gain_db)
+    else:
+        gain_db = scans.linear_scan(attack, (1.0 - attack) * gain_db,
+                                    state.gain_db)
+    new_state = AGCState(peak_db=peak_db[..., -1], gain_db=gain_db[..., -1])
+    if decimation > 1:
+        gain_db = torch.repeat_interleave(gain_db, decimation, dim=-1)
+    return new_state, audio * torch.pow(10.0, gain_db / 20.0)

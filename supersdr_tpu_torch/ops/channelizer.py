@@ -1,8 +1,11 @@
 """Polyphase filterbank channelizer: host-side plan and tables.
 
-Counterpart of `supersdr_tpu/ops/channelizer.py` for the parts the
-planar wideband path reads. The filterbank itself (fold + both DIF FFT
-stages) is the kernel in `ops/cuda/channelize_fused.py`.
+Counterpart of `supersdr_tpu/ops/channelizer.py`. The planar wideband
+path runs the filterbank (fold + both DIF FFT stages) as the kernel in
+`ops/cuda/channelize_fused.py`; the chan-major tiers run `channelize_c` /
+`channelize_mxu2_c` here (the K-tap fold as shifted row slices, then
+`torch.fft` over the channel axis — cuFFT on the card) or the fold kernel
+of `ops/cuda/pfb_fold.py`.
 
 Critically sampled WOLA filterbank: channel m is centred at m·fs/M
 (wrapped to ±fs/2); the M-point DFT is factored M = n1·n2 with DIF
@@ -17,8 +20,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from supersdr_tpu.ops import firdesign
-from supersdr_tpu_torch.ops import cx
+from supersdr_tpu_torch.ops import cx, firdesign
 
 MAX_DIRECT = 256   # largest DFT factor (the reference's cx.MAX_DIRECT)
 
@@ -75,6 +77,70 @@ def init_carry(plan: PFBPlan, batch_shape: tuple[int, ...] = (),
                device=None) -> cx.CX:
     """Zero filter history [*batch, history]."""
     return cx.zeros(batch_shape + (plan.history,), device=device)
+
+
+def _fold_slices(g2: torch.Tensor, rows: torch.Tensor, n_frames: int
+                 ) -> torch.Tensor:
+    """fold[t, r] = Σ_k g2[k, r]·rows[t + k, r] (critical sampling)."""
+    fold = g2[0] * rows[..., 0:n_frames, :]
+    for k in range(1, g2.shape[0]):
+        fold = fold + g2[k] * rows[..., k:k + n_frames, :]
+    return fold
+
+
+def channelize_c(plan: PFBPlan, W: torch.Tensor, carry: torch.Tensor,
+                 x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One streaming step on complex tensors: x [*batch, n] (n a multiple
+    of n_chan and of the hop) → (new carry, channels [*batch, n_chan,
+    n/hop]); channel m is the band at m·fs/M, decimated to fs/hop, with
+    the mixer phase referenced to the stream origin:
+        y[m, t] = Σ_j proto[j]·x[t·hop − j]·e^{2πi·m·(t·hop − j)/M}."""
+    n = x.shape[-1]
+    M, K, hop = plan.n_chan, plan.taps_per, plan.hop
+    if n % hop or n % M:
+        raise ValueError("block length must be a multiple of the hop and "
+                         "of n_chan")
+    n_frames = n // hop
+    seg = torch.cat([carry, x], dim=-1)
+    g = W.reshape(-1).flip(0)
+    if hop == M:
+        rows = seg.reshape(*seg.shape[:-1], n_frames + K - 1, M)
+        fold = _fold_slices(g.reshape(K, M), rows, n_frames)
+    else:
+        idx = (torch.arange(n_frames, device=x.device)[:, None] * hop
+               + torch.arange(plan.window_len, device=x.device)[None, :])
+        frames = seg[..., idx]                          # [.., nf, K·M]
+        fold = (frames * g).reshape(*frames.shape[:-1], K, M).sum(-2)
+    spec = torch.fft.fft(fold, dim=-1)                  # [.., nf, M]
+    if hop != M:
+        m = torch.arange(M, device=x.device)
+        rot = (plan.history - torch.arange(n_frames, device=x.device
+                                           )[:, None] * hop) % M
+        spec = spec * torch.exp((2j * np.pi / M) * (m[None, :] * rot))
+    return seg[..., -plan.history:], spec.transpose(-1, -2)
+
+
+def mxu2_supported(M: int) -> bool:
+    return M <= MAX_DIRECT or _pick_factors(M) is not None
+
+
+def channelize_mxu2_c(plan: PFBPlan, W: torch.Tensor, carry: torch.Tensor,
+                      x: torch.Tensor, *, fold_impl: str = "slices"
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's lane-layout channelizer ([n] complex → (new carry,
+    [M, n/M])): the fold as row slices, then the M-point DFT. The
+    reference evaluates that DFT as two DIF matrix products at its
+    precision tier; the port takes `torch.fft` in float32, which is that
+    DFT to float32 rounding."""
+    if fold_impl != "slices":
+        raise NotImplementedError(
+            f"fold_impl={fold_impl!r} is one of the reference's TPU A/B "
+            "variants, not ported (ROADMAP queue 1, do-not-port list)")
+    if plan.hop != plan.n_chan:
+        raise ValueError("mxu2 channelizer requires critical sampling")
+    if x.ndim != 1:
+        raise ValueError("mxu2 channelizer is unbatched ([n] input)")
+    return channelize_c(plan, W, carry, x)
 
 
 def _pick_factors(M: int) -> tuple[int, int] | None:

@@ -1,15 +1,26 @@
 """Wideband receiver: one capture → polyphase channelizer → N demod chains.
 
-Counterpart of `supersdr_tpu/runtime/wideband.py` on its planar tier —
-the main path: the fused channelizer's raw [n1, frames, n2] planes feed
-the FIR-fused chain tail directly, and audio comes back time-major
-[frames·L, n_chan] with rows in planar channel order (`audio_channel_order`
-maps rows to PFB bins; `channel_freqs` is row-aligned).
+Counterpart of `supersdr_tpu/runtime/wideband.py`. Its tiers, chosen by
+the reference's own predicates:
 
-Only the planar tier is ported. A config the reference would serve on
-another tier (`_planar_active` false: chan-major, the fallbacks, SMALL's
-16 channels), and AGC hang, squelch and IQ mode, raise
-`NotImplementedError` naming the ROADMAP item that brings them.
+  planar      (`time_major`, `_planar_active`): the fused channelizer's raw
+              [n1, frames, n2] planes feed the FIR-fused chain tail
+              directly; audio comes back time-major [frames·L, n_chan]
+              with rows in planar channel order;
+  chan-major  (`time_major=False`, the default): `channelize_dispatch`
+              (the fold kernel with `pallas_fold`, the fused channelizer
+              permuted to bin order, or the plain fold + FFT) → the
+              receiver chain batched over the channels (`chain.process`,
+              whose ≥ 128-channel tail is one kernel launch); audio
+              [n_chan, frames·L];
+  fallback    (`time_major` but `_tmajor_fused_ok` false: SMALL's 16
+              channels, `--n-chan 100`, odd chunks): the chan-major
+              pipeline plus one transpose.
+
+`audio_channel_order` maps rows to PFB bins (identity off the planar
+tier) and `channel_freqs` is row-aligned. The time-major tier that the
+reference runs when `_tmajor_fused_ok` holds but `_planar_active` does
+not raises `NotImplementedError` (ROADMAP queue 1 #3b).
 """
 
 from __future__ import annotations
@@ -22,7 +33,7 @@ import numpy as np
 import torch
 
 from supersdr_tpu_torch.ops import channelizer, cx, fir_matmul
-from supersdr_tpu_torch.ops.cuda import channelize_fused
+from supersdr_tpu_torch.ops.cuda import channelize_fused, pfb_fold
 from supersdr_tpu_torch.runtime import chain
 
 # The reference's two tuned tiers, by the same names and values; both run
@@ -44,14 +55,20 @@ PROFILES = {
 
 _AUDIO_DTYPES = {"f32": torch.float32, "f16": torch.float16,
                  "bf16": torch.bfloat16}
+_CHAN_IMPLS = ("legacy", "mxu2", "mxu2fused")
+_CHAN_IMPLS_NOT_PORTED = ("mxu2conv", "mxu2pallas", "stub", "nofft")
 
 
 @dataclass(frozen=True)
 class WidebandConfig:
     """fs_in must equal n_chan·chain.iq_rate (critical sampling). Field
-    names and defaults follow the reference's, so one keyword set builds
-    both; the reference's TPU-only A/B knobs (pallas_fold, mxu_chan_fft,
-    chan_fold_dtype, chan_fft_form, chan_split2) are not ported."""
+    names, order, defaults and checks follow the reference's, so one
+    keyword set builds both, less four TPU A/B knobs that are not ported
+    (mxu_chan_fft, chan_fold_dtype, chan_fft_form, chan_split2: the port
+    runs stage B unsplit). `pallas_fold` routes the chan-major
+    channelizer through the fold kernel (`ops/cuda/pfb_fold.py`); the
+    `chan_impl` values mxu2conv, mxu2pallas, stub and nofft are accepted
+    but raise at `process` (the reference's superseded variants)."""
     fs_in: int = 1_200_000
     n_chan: int = 100
     taps_per: int = 8
@@ -64,6 +81,7 @@ class WidebandConfig:
     hang_ms: float = 500.0
     squelch_enabled: bool = False
     max_dev_hz: float = 5000.0
+    pallas_fold: bool = False
     passband_impl: str = "fft"
     passband_precision: str = "highest"
     resample_impl: str = "einsum"
@@ -91,6 +109,9 @@ class WidebandConfig:
             if n1f * n2f != self.n_chan or n2f % 128:
                 raise ValueError("chan_factors must multiply to n_chan "
                                  "with a lane-multiple n2")
+        if self.chan_impl not in _CHAN_IMPLS + _CHAN_IMPLS_NOT_PORTED:
+            raise ValueError(f"chan_impl must be one of "
+                             f"{_CHAN_IMPLS + _CHAN_IMPLS_NOT_PORTED}")
 
     @property
     def iq_rate(self) -> int:
@@ -102,6 +123,7 @@ class WidebandConfig:
 
     @property
     def chain_cfg(self) -> chain.ChainConfig:
+        # PFB outputs are channel-centred: the NCO pass is compiled out
         return chain.ChainConfig(mode=self.mode, iq_rate=self.iq_rate,
                                  audio_rate=self.audio_rate,
                                  chunk=self.chunk_per_chan,
@@ -130,24 +152,11 @@ class WidebandState(NamedTuple):
     chain: chain.ChainState
 
 
-def _check_slice(cfg: WidebandConfig) -> None:
-    """Raise NotImplementedError for what slice 1 does not run."""
-    if cfg.hang_enabled:
-        raise NotImplementedError("AGC hang is not ported yet (ROADMAP "
-                                  "queue 1 #1: hang on the fused tail)")
-    if cfg.squelch_enabled:
-        raise NotImplementedError("squelch is not ported yet (ROADMAP "
-                                  "queue 1 #2: squelch gate)")
-    if not _planar_active(cfg):
-        raise NotImplementedError(
-            "only the planar wideband tier is ported; this config runs on "
-            "the reference's chan-major or fallback tiers (ROADMAP queue 1 "
-            "#3: the wideband fallbacks)")
-
-
 def make_params(cfg: WidebandConfig, device=None,
                 **chain_kwargs) -> WidebandParams:
-    _check_slice(cfg)
+    """The PFB weights and the chain's parameters. The channels are
+    centred already and the chain's NCO is compiled out, so its (unused)
+    tuning is built for offset 0 alone, not one row per channel."""
     plan, proto = channelizer.design(cfg.n_chan, cfg.taps_per)
     return WidebandParams(
         W_pfb=channelizer.taps_matrix(plan, proto, device=device),
@@ -167,31 +176,38 @@ def pfb_plan(cfg: WidebandConfig) -> channelizer.PFBPlan:
 
 
 def _tmajor_fused_ok(cfg: WidebandConfig) -> bool:
-    """The reference's time-major fused predicate, without its standalone
-    time-major passband rung (which only serves configs `_planar_active`
-    rejects anyway: it requires the in-tail FIR block)."""
+    """The reference's predicate for its time-major fused tiers: the fused
+    channelizer and tail serve the config, and either the in-tail FIR
+    block or the standalone time-major FIR (chunk % block == 0) exists."""
     fac = channelizer._pick_factors(cfg.n_chan)
     ccfg = cfg.chain_cfg
-    return (cfg.chan_impl == "mxu2fused" and fac is not None
+    if not (cfg.chan_impl == "mxu2fused" and fac is not None
             and fac[1] % 128 == 0
             and cfg.chunk_per_chan % 8 == 0
             and ccfg.passband_impl == "matmul"
             and ccfg.tail_impl == "pallas"
-            and chain._pallas_tail_ok(ccfg, (cfg.n_chan,))
-            and fir_matmul.tail_fir_block(
-                ccfg.chunk, ccfg.n_taps,
-                chain._tail_tile(ccfg.chunk, ccfg.n_taps)) is not None)
+            and chain._pallas_tail_ok(ccfg, (cfg.n_chan,))):
+        return False
+    if fir_matmul.tail_fir_block(
+            ccfg.chunk, ccfg.n_taps,
+            chain._tail_tile(ccfg.chunk, ccfg.n_taps)) is not None:
+        return True
+    return ccfg.chunk % ccfg.fir_plan.block == 0
 
 
 def _planar_active(cfg: WidebandConfig) -> bool:
-    """True when the reference runs this config on its planar tier — the
-    only tier this package runs."""
+    """True when the reference runs this config on its planar tier."""
     if not (cfg.time_major and _tmajor_fused_ok(cfg)):
         return False
     fac = _factors_for(cfg)
     if fac is None or fac[1] % 128:
         return False
-    return cfg.chunk_per_chan % cfg.chan_tile_t == 0
+    if cfg.chunk_per_chan % cfg.chan_tile_t:
+        return False
+    ccfg = cfg.chain_cfg
+    return fir_matmul.tail_fir_block(
+        ccfg.chunk, ccfg.n_taps,
+        chain._tail_tile(ccfg.chunk, ccfg.n_taps)) is not None
 
 
 def _factors_for(cfg: WidebandConfig) -> tuple[int, int] | None:
@@ -260,6 +276,73 @@ def _coerce(iq, device):
     return cx.as_cx(iq, device=device)
 
 
+def _as_f32_cx(iq) -> cx.CX:
+    """CX as it is; an int16 pair dequantized (±32768 ≡ ±1.0)."""
+    if isinstance(iq, cx.CX):
+        return iq
+    return cx.CX(iq[0].float() * (1.0 / 32768.0),
+                 iq[1].float() * (1.0 / 32768.0))
+
+
+def _check_ported(cfg: WidebandConfig) -> None:
+    if cfg.chan_impl in _CHAN_IMPLS_NOT_PORTED:
+        raise NotImplementedError(
+            f"chan_impl={cfg.chan_impl!r} is one of the reference's "
+            "superseded TPU variants, not ported (ROADMAP queue 1, "
+            "do-not-port list)")
+
+
+def channelize_dispatch(cfg: WidebandConfig, params: WidebandParams,
+                        carry: cx.CX, iq: cx.CX
+                        ) -> tuple[cx.CX, torch.Tensor]:
+    """The chan-major channelizer, as the reference dispatches it:
+    `pallas_fold` → the fold kernel + `torch.fft`; "mxu2fused" on a
+    lane-aligned factoring and 8-aligned frames → the fused channelizer
+    kernel, its planes permuted to bin order (the reference's
+    out_layout="chan"); "mxu2fused" otherwise and "mxu2" →
+    `channelize_mxu2_c`; "legacy" → `channelize_c`.
+
+    carry: CX [history]; iq: CX [n] float32 planes. Returns (new carry CX,
+    chans complex64 [n_chan, n/n_chan])."""
+    _check_ported(cfg)
+    plan = pfb_plan(cfg)
+    M, K = cfg.n_chan, cfg.taps_per
+    nf = iq.re.shape[-1] // M
+    if cfg.pallas_fold:
+        G = params.W_pfb.reshape(-1).flip(0).reshape(K, M).contiguous()
+        return pfb_fold.channelize_pallas_c(plan, G, carry, iq)
+    fac = channelizer._pick_factors(M)
+    if cfg.chan_impl == "mxu2fused" and fac is not None \
+            and fac[1] % 128 == 0 and nf % 8 == 0:
+        n1, n2 = fac
+        new_carry, (raw_r, raw_i) = channelize_fused.channelize_fused_raw3(
+            plan, params.W_pfb, carry, iq, factors=fac,
+            bf16_mxu=cfg.chan_precision == "default",
+            out_dtype=torch.float32)
+        # [n1(k1), nf, n2(k2)] → bin m = k2·n1 + k1: [n2, n1, nf] → [M, nf]
+        return new_carry, torch.complex(
+            raw_r.permute(2, 0, 1).reshape(M, nf),
+            raw_i.permute(2, 0, 1).reshape(M, nf))
+    carry_c = torch.complex(carry.re, carry.im)
+    x = torch.complex(iq.re, iq.im)
+    if cfg.chan_impl in ("mxu2fused", "mxu2"):
+        c, chans = channelizer.channelize_mxu2_c(plan, params.W_pfb,
+                                                 carry_c, x)
+    else:
+        c, chans = channelizer.channelize_c(plan, params.W_pfb, carry_c, x)
+    return cx.CX(c.real.contiguous(), c.imag.contiguous()), chans
+
+
+def _process_chan_major(cfg: WidebandConfig, params: WidebandParams,
+                        state: WidebandState, iq
+                        ) -> tuple[WidebandState, chain.ChainOutput]:
+    pfb_carry, chans = channelize_dispatch(cfg, params, state.pfb_carry,
+                                           _as_f32_cx(iq))
+    cstate, out = chain.process_traced(cfg.chain_cfg, params.chain,
+                                       state.chain, chans)
+    return WidebandState(pfb_carry=pfb_carry, chain=cstate), out
+
+
 def _process_planar(cfg: WidebandConfig, params: WidebandParams,
                     state: WidebandState, iq
                     ) -> tuple[WidebandState, chain.ChainOutput]:
@@ -284,16 +367,35 @@ def _process_planar(cfg: WidebandConfig, params: WidebandParams,
             chain.ChainOutput(audio=audioT, rssi=rssi, baseband=None))
 
 
+def _process_tmajor(cfg: WidebandConfig, params: WidebandParams,
+                    state: WidebandState, iq
+                    ) -> tuple[WidebandState, chain.ChainOutput]:
+    if _planar_active(cfg):
+        return _process_planar(cfg, params, state, iq)
+    if _tmajor_fused_ok(cfg):
+        raise NotImplementedError(
+            "the time-major fused tier off the planar coupling (chunks "
+            "that chan_tile_t does not divide, or no in-tail FIR block) is "
+            "not ported yet (ROADMAP queue 1 #3b)")
+    # fallback: the chan-major pipeline plus one transpose
+    st, out = _process_chan_major(cfg, params, state, iq)
+    audioT = out.audio.T.to(_AUDIO_DTYPES[cfg.audio_dtype]).contiguous()
+    bb = cx.CX(out.baseband.re.T, out.baseband.im.T)
+    return st, chain.ChainOutput(audio=audioT, rssi=out.rssi, baseband=bb)
+
+
 def process(cfg: WidebandConfig, params: WidebandParams,
             state: WidebandState, iq
             ) -> tuple[WidebandState, chain.ChainOutput]:
     """One chunk: iq [chunk_in] as a CX, complex numpy or complex tensor,
-    or an (re_i16, im_i16) pair → audio [chunk_per_chan·L, n_chan] and
-    RSSI [n_chan, 1], rows in `audio_channel_order`. Inputs move to the
+    or an (re_i16, im_i16) pair → audio [n_chan, chunk_per_chan·L]
+    (`time_major`: [chunk_per_chan·L, n_chan], rows in
+    `audio_channel_order`) and RSSI [n_chan, rows]. Inputs move to the
     params' device."""
-    _check_slice(cfg)
-    return _process_planar(cfg, params, state,
-                           _coerce(iq, params.W_pfb.device))
+    iq = _coerce(iq, params.W_pfb.device)
+    if cfg.time_major:
+        return _process_tmajor(cfg, params, state, iq)
+    return _process_chan_major(cfg, params, state, iq)
 
 
 def process_n(cfg: WidebandConfig, params: WidebandParams,
@@ -307,11 +409,27 @@ def process_n(cfg: WidebandConfig, params: WidebandParams,
     return state, tuple(outs)
 
 
+def process_many(cfg: WidebandConfig, params: WidebandParams,
+                 state: WidebandState, iq_chunks
+                 ) -> tuple[WidebandState, torch.Tensor | cx.CX]:
+    """iq_chunks [n_chunks, chunk_in] (CX or complex) → (state, audio
+    [n_chunks, …]) — IQ mode: a CX of stacked baseband planes."""
+    chunks = cx.as_cx(iq_chunks, device=params.W_pfb.device)
+    state, outs = process_n(cfg, params, state,
+                            [cx.CX(chunks.re[i], chunks.im[i])
+                             for i in range(chunks.re.shape[0])])
+    if isinstance(outs[0], cx.CX):
+        return state, cx.CX(torch.stack([o.re for o in outs]),
+                            torch.stack([o.im for o in outs]))
+    return state, torch.stack(outs)
+
+
 def process_i16(cfg: WidebandConfig, params: WidebandParams,
                 state: WidebandState, iq16
                 ) -> tuple[WidebandState, chain.ChainOutput]:
     """One chunk of int16 IQ planes (re_i16, im_i16), full scale ±32768 ≡
-    ±1.0; the channelizer dequantizes on load."""
+    ±1.0; the planar channelizer dequantizes on load, the other tiers up
+    front."""
     if not (isinstance(iq16, tuple) and len(iq16) == 2):
         raise TypeError("iq16 must be an (re_i16, im_i16) pair")
     return process(cfg, params, state, (iq16[0], iq16[1]))

@@ -1,6 +1,7 @@
-"""The port's chain tail (plain PyTorch version of the FIR-fused tail
-kernel) against the JAX package's `chain_tail_am(fir=…, interpret=True)`
-on the channelizer's raw planar planes, two chained calls.
+"""The port's chain tails (the plain PyTorch versions of both tail
+kernels) against the JAX package's `chain_tail_am(…, interpret=True)`:
+the FIR-fused tail on the channelizer's raw planar planes, and the
+non-FIR tail on passband planes, two chained calls each.
 
 Both sides get the same numpy inputs. The reference's FIR and resampler
 run split-bf16 ×3 (~f32) or 1-pass bf16 dots; the port's plain version
@@ -67,7 +68,7 @@ def _planes(mode, rng):
 
 
 def _run_jax(x, head, st, par9, w2, P, *, tile, B, n_prev, demod, fast,
-             real, rs_dot3, rb):
+             real, rs_dot3, rb, hang_window=0):
     dt = jnp.bfloat16 if fast else jnp.float32
     PH, ov = n_prev * B, N_TAPS - 1
     hz = np.zeros((PH - ov, C), np.float32)
@@ -83,7 +84,7 @@ def _run_jax(x, head, st, par9, w2, P, *, tile, B, n_prev, demod, fast,
     audio, st2 = jct.chain_tail_am(
         None, None, jnp.asarray(st_rows), jnp.asarray(par9), P,
         tile_t=tile, L=P.shape[1], demod=demod, interpret=True,
-        accum_pow=True, fir=fir)
+        accum_pow=True, fir=fir, hang_window=hang_window)
     st2 = np.asarray(st2).transpose(1, 0, 2).reshape(4 + PER, C)
     return np.asarray(audio), st2
 
@@ -106,8 +107,7 @@ def test_tail_matches_reference_two_calls(mode, tier, rs_prec):
     assert real == (mode != "USB")
     P = tp.P_interp.numpy()
     PER = P.shape[0]
-    par8 = tchain._tail_params_vec(tp, cfg)
-    par9 = np.concatenate([par8.numpy(), [0.0]]).astype(np.float32)
+    par = tchain._tail_params_vec(tp, cfg)
     demod = tchain._tail_demod(cfg)
     fast = tier == "fast"
     rs_bf16 = rs_prec == "default"
@@ -122,15 +122,15 @@ def test_tail_matches_reference_two_calls(mode, tier, rs_prec):
         if fast:                 # the fast tier's raw planes are bf16
             x = [np.asarray(jnp.asarray(v, jnp.bfloat16), np.float32)
                  for v in x]
-        a_j, st_j = _run_jax(x, head, st_j, par9, w2, P, tile=tile, B=B,
-                             n_prev=n_prev, demod=demod, fast=fast,
+        a_j, st_j = _run_jax(x, head, st_j, par.numpy(), w2, P, tile=tile,
+                             B=B, n_prev=n_prev, demod=demod, fast=fast,
                              real=real, rs_dot3=not rs_bf16, rb=rb)
         tx = [torch.from_numpy(v) for v in x]
         if fast:
             tx = [v.to(torch.bfloat16) for v in tx]
         a_t, st_t = tct.chain_tail_fir(
             *tx, *(torch.from_numpy(np.ascontiguousarray(h)) for h in head),
-            st_t, par8, tp.W_tailpass, tp.P_interp, n_taps=N_TAPS, B=B,
+            st_t, par, tp.W_tailpass, tp.P_interp, n_taps=N_TAPS, B=B,
             n_prev=n_prev, tile_t=tile, demod=demod, fir_bf16=fast,
             rs_bf16=rs_bf16)
         skip = 1280 if (mode == "NBFM" and call == 0) else 0
@@ -178,9 +178,8 @@ def test_tail_params_vec_matches_reference(mode):
                               n_taps=N_TAPS, passband_impl="matmul")
     jv = np.asarray(jchain._tail_params_vec(jchain.make_params(jcfg), jcfg))
     tv = tchain._tail_params_vec(tchain.make_params(tcfg), tcfg).numpy()
-    assert tv.shape == (tct.N_PARAMS,)
-    np.testing.assert_array_equal(jv[:8], tv)
-    assert jv[8] == 0.0          # the reference's hang slot, not ported
+    assert tv.shape == jv.shape == (tct.N_PARAMS,)
+    np.testing.assert_array_equal(jv, tv)
 
 
 def test_tail_wrapper_rejects_bad_inputs():
@@ -203,3 +202,169 @@ def test_tail_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         tct.chain_tail_fir(x, x, head, head, st, par, tp.W_tailpass,
                            tp.P_interp, **dict(kw, demod="fm"))
+
+
+def _bursty_planes(mode, rng, nf, C):
+    """Passband planes [nf, C]: FM carriers for NBFM, else AM carriers
+    gated on and off within the chunk (so the hang holds and releases)."""
+    t = np.arange(nf)[:, None] / FS
+    ph0 = rng.uniform(0, 2 * np.pi, size=C)
+    if mode == "NBFM":
+        g = rng.uniform(300.0, 1000.0, size=C)
+        beta = rng.uniform(1.0, 2.5, size=C)
+        z = 0.4 * np.exp(1j * (beta * np.sin(2 * np.pi * g * t) + ph0))
+    else:
+        gate = (np.sin(2 * np.pi * rng.uniform(20, 60, size=C) * t) > 0)
+        z = 0.3 * (0.05 + gate) * (1 + 0.5 * np.sin(2 * np.pi * 700 * t)) \
+            * np.exp(1j * ph0)
+    z = z + 0.003 * (rng.normal(size=(nf, C)) + 1j * rng.normal(size=(nf, C)))
+    return (np.ascontiguousarray(z.real, np.float32),
+            np.ascontiguousarray(z.imag, np.float32))
+
+
+# (mode, accum_pow, hang ring tiles) — the window W gives
+# ceil((W − 1)/T) ring tiles at T = 128
+AM_CASES = [("AM", False, 0), ("AM", True, 1), ("AM", True, 7),
+            ("USB", True, 0), ("USB", False, 7), ("NBFM", True, 1),
+            ("NBFM", False, 0)]
+T_AM = 128
+
+
+@pytest.mark.parametrize("mode,accum,tiles", AM_CASES)
+def test_tail_am_matches_reference_two_calls(mode, accum, tiles):
+    """The non-FIR tail's plain version against `chain_tail_am` without
+    `fir` (the reference's `_kernel`), with the hang flag on: y handed
+    over as the real/imag views of a chain-major complex [C, nf] tensor,
+    audio asked for chain-major, as `chain._process_tail_pallas` does."""
+    C_ = 256
+    W = {0: 0, 1: 100, 7: 6 * T_AM + 50}[tiles]
+    assert tct.hang_tiles_for(W, T_AM) == tiles
+    cfg = tchain.ChainConfig(mode=mode, iq_rate=FS, chunk=NF, os_block=NF,
+                             n_taps=N_TAPS)
+    tp = tchain.make_params(cfg, agc_kwargs=dict(on=mode != "NBFM",
+                                                 hang=True))
+    par = tchain._tail_params_vec(tp, cfg)
+    assert float(par[8]) == 1.0
+    P = tp.P_interp
+    PER, L = P.shape
+    rows_j = 4 + PER - 1 + int(accum)
+    st_j = np.zeros((rows_j, C_), np.float32)
+    st_j[2] = -120.0
+    st_t = torch.zeros(4 + PER, C_)
+    st_t[2] = -120.0
+    demod = tchain._tail_demod(cfg)
+    rng = np.random.default_rng(8)
+    for call in range(2):
+        yr, yi = _bursty_planes(mode, rng, NF, C_)
+        a_j, st2 = jct.chain_tail_am(
+            jnp.asarray(yr), jnp.asarray(yi),
+            jnp.asarray(st_j.reshape(rows_j, C_ // 128, 128)
+                        .transpose(1, 0, 2)),
+            jnp.asarray(par.numpy()), P.numpy(), tile_t=T_AM, L=L,
+            demod=demod, interpret=True, accum_pow=accum, hang_window=W)
+        st_j = np.asarray(st2).transpose(1, 0, 2).reshape(rows_j, C_)
+        y = torch.complex(torch.from_numpy(yr.T.copy()),
+                          torch.from_numpy(yi.T.copy()))      # [C, nf]
+        a_t, st_t = tct.chain_tail_am(
+            y.real.T, y.imag.T, st_t, par, P, tile_t=T_AM, demod=demod,
+            accum_pow=accum, hang_window=W, audio_layout="chan")
+        assert a_t.shape == (C_, NF * L)
+        skip = 1280 if (mode == "NBFM" and call == 0) else 0
+        snr_a = _snr(np.asarray(a_j).T[:, skip:], a_t.numpy()[:, skip:])
+        snr_s = _snr(st_j[:4 + PER - 1], st_t.numpy()[:4 + PER - 1])
+        assert snr_a >= TOL_DB and snr_s >= TOL_DB, (call, snr_a, snr_s)
+        if accum:
+            np.testing.assert_allclose(st_t.numpy()[-1], st_j[-1],
+                                       rtol=1e-4)
+            st_j = st_j.copy()
+            st_j[-1] = 0.0
+        else:
+            assert not st_t[-1].any()
+        st_t = st_t.clone()
+        st_t[-1] = 0.0
+
+
+def test_tail_am_layouts_agree():
+    """Time-major and chain-major sources and outputs give the same
+    numbers (the kernel reads and writes both by element strides)."""
+    cfg = tchain.ChainConfig(mode="AM", iq_rate=FS, chunk=NF, os_block=NF,
+                             n_taps=N_TAPS)
+    tp = tchain.make_params(cfg)
+    par = tchain._tail_params_vec(tp, cfg)
+    yr, yi = _bursty_planes("AM", np.random.default_rng(2), NF, 24)
+    st = torch.zeros(4 + tp.P_interp.shape[0], 24)
+    kw = dict(tile_t=T_AM, demod="am", accum_pow=True, hang_window=300)
+    a_time, s_time = tct.chain_tail_am(torch.from_numpy(yr),
+                                       torch.from_numpy(yi), st, par,
+                                       tp.P_interp, **kw)
+    y = torch.complex(torch.from_numpy(yr.T.copy()),
+                      torch.from_numpy(yi.T.copy()))
+    a_chan, s_chan = tct.chain_tail_am(y.real.T, y.imag.T, st, par,
+                                       tp.P_interp, audio_layout="chan",
+                                       **kw)
+    assert torch.equal(a_time.T, a_chan)
+    # the power row sums the same squares in another memory order
+    torch.testing.assert_close(s_chan, s_time, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("hang_on", [True, False])
+def test_fir_tail_hang_matches_reference(hang_on):
+    """The FIR tail with a hang window. Hang on: against the reference
+    with its hang window and `agc.hang` on. Hang flag off: against the
+    reference without a hang window (`hang_enabled=False`) — the
+    reference's FIR kernel reads the flag from past its 8-slot parameter
+    block and does not honour it (ROADMAP queue 3); the port's does."""
+    cfg = _chain_cfg("AM", "quality", "high")
+    tp = tchain.make_params(cfg, agc_kwargs=dict(hang=hang_on))
+    tile = tchain._tail_tile(NF, N_TAPS)
+    B, n_prev = tfm.tail_fir_block(NF, N_TAPS, tile)
+    rb = 32 if tile % 32 == 0 else (16 if tile % 16 == 0 else 0)
+    w2 = tp.W_tailpass.numpy()
+    P = tp.P_interp.numpy()
+    PER = P.shape[0]
+    par = tchain._tail_params_vec(tp, cfg)
+    W = 2 * tile + 40                              # 3 ring tiles
+    rng = np.random.default_rng(12)
+    ov = N_TAPS - 1
+    head = [np.zeros((ov, C), np.float32)] * 2
+    st_j = np.zeros((4 + PER, C), np.float32)
+    st_j[2] = -120.0
+    st_t = torch.from_numpy(st_j.copy())
+    for call in range(2):
+        yr, yi = _bursty_planes("AM", rng, NF, C)
+        x = [v.reshape(NF, N1, N2).transpose(1, 0, 2).copy()
+             for v in (yr, yi)]
+        a_j, st_j = _run_jax(x, head, st_j, par.numpy(), w2, P, tile=tile,
+                             B=B, n_prev=n_prev, demod="am", fast=False,
+                             real=True, rs_dot3=True, rb=rb,
+                             hang_window=W if hang_on else 0)
+        a_t, st_t = tct.chain_tail_fir(
+            *(torch.from_numpy(v) for v in x),
+            *(torch.from_numpy(np.ascontiguousarray(h)) for h in head),
+            st_t, par, tp.W_tailpass, tp.P_interp, n_taps=N_TAPS, B=B,
+            n_prev=n_prev, tile_t=tile, demod="am", fir_bf16=False,
+            rs_bf16=False, hang_window=W)
+        snr_a = _snr(a_j, a_t.numpy())
+        snr_s = _snr(st_j[:4 + PER - 1], st_t.numpy()[:4 + PER - 1])
+        assert snr_a >= TOL_DB and snr_s >= TOL_DB, (call, snr_a, snr_s)
+        head = [v.transpose(1, 0, 2).reshape(NF, C)[-ov:] for v in x]
+        st_j = st_j.copy()
+        st_j[-1] = 0.0
+
+
+def test_tail_am_wrapper_rejects_bad_inputs():
+    cfg = tchain.ChainConfig(mode="AM", iq_rate=FS, chunk=NF, os_block=NF,
+                             n_taps=N_TAPS)
+    tp = tchain.make_params(cfg)
+    par = tchain._tail_params_vec(tp, cfg)
+    y = torch.zeros(NF, 16)
+    st = torch.zeros(4 + tp.P_interp.shape[0], 16)
+    with pytest.raises(ValueError):                  # 8-slot vector
+        tct.chain_tail_am(y, y, st, par[:8], tp.P_interp, tile_t=T_AM,
+                          demod="am")
+    with pytest.raises(ValueError):                  # tile not dividing nf
+        tct.chain_tail_am(y, y, st, par, tp.P_interp, tile_t=96,
+                          demod="am")
+    with pytest.raises(ValueError):
+        tct.chain_tail_am(y, y.double(), st, par, tp.P_interp, tile_t=T_AM,
+                          demod="am")

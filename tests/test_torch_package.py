@@ -22,11 +22,15 @@ REPO = Path(__file__).resolve().parents[1]
 @pytest.mark.parametrize("module", [
     "supersdr_tpu_torch", "supersdr_tpu_torch.runtime.wideband",
     "supersdr_tpu_torch.convert", "supersdr_tpu_torch.ops.cuda.chain_tail",
-    "supersdr_tpu_torch.ops.cuda.channelize_fused"])
+    "supersdr_tpu_torch.ops.cuda.channelize_fused",
+    "supersdr_tpu_torch.ops.cuda.pfb_fold",
+    "supersdr_tpu_torch.runtime.chain", "supersdr_tpu_torch.ops.scans",
+    "supersdr_tpu_torch.ops.squelch", "supersdr_tpu_torch.ops.resample"])
 def test_imports_without_jax(module):
+    """Nothing of JAX, and nothing of the JAX package either."""
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
             "bad = sorted(m for m in sys.modules "
-            "if m == 'jax' or m.startswith('jax.')); "
+            "if m.split('.')[0] in ('jax', 'supersdr_tpu')); "
             "assert not bad, bad; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -74,7 +78,8 @@ def test_build_targets_sm90a_into_ignored_dir():
     ignored = (REPO / ".gitignore").read_text().split()
     assert rel in ignored
     assert {p.name for p in _build.sources()} == {"channelize_fused.cu",
-                                                 "chain_tail.cu"}
+                                                 "chain_tail.cu",
+                                                 "pfb_fold.cu"}
     # the source hash names the library, so an edited source rebuilds
     assert _build.source_hash() in lib.name
 
