@@ -6,15 +6,20 @@ Run from the repository root with no arguments:
 
 Phases, each printed as it runs; any failure exits non-zero:
   1. card identity (torch / CUDA versions, nvidia-smi name and power limit);
-  2. build the four kernels from supersdr_tpu_torch/csrc with nvcc (one
+  2. build the five kernels from supersdr_tpu_torch/csrc with nvcc (one
      process a source, in parallel);
   3. each kernel's wrapper against its plain PyTorch version on the card,
      at the MID shape (2560 channels, 512 frames a chunk): the channelizer
      on both tiers with float32 and int16 input, the FIR tail on AM (both
      tiers), USB, NBFM and with AGC hang, the fold, and the non-FIR tail on
      AM with hang off and on (500 and 40 ms), USB, NBFM (FM carriers,
-     manual AGC) and with the power row; plus ragged last tiles (13 frames
-     for the channelizer and the fold, 640 for both tails);
+     manual AGC), with the power row and on time-major planes; plus ragged
+     last tiles (13 frames for the channelizer and the fold, 640 for both
+     tails); the channelizer's time-major store (float32 and int16 input)
+     and the FIR tail's 2-D source; and the
+     halo kernel, bit for bit, over float32, int16 and complex64, 1 to 256
+     samples, 1 to 8 shards, 1 to 2560 rows, strided sources, a −inf fill,
+     two hops and a head for shard 0;
   4. the planar main path, `wideband.process_n`, at the HEADLINE shape
      (2560 channels, 16128 frames a chunk) on both profiles with float32
      and int16 chunks: launch counts and audio checks; then the chan-major
@@ -30,7 +35,25 @@ Phases, each printed as it runs; any failure exits non-zero:
      receivers with the tail kernel, `chain.run_offline` for one 12 kHz and
      one 20.25 kHz receiver, and a MID chan-major run through the fused
      channelizer and the tail kernel, each held against the same call on
-     the CPU.
+     the CPU;
+  7. the sharded receiver chain (SHARDED: `parallel.sharded_chain.build` on
+     8 receivers × 8 time shards of 131072 samples, AM with the matmul
+     passband, and on a 2 × 4 chan × time grid, USB with the fft passband;
+     two chained calls each): halo-kernel launches with halo_impl="rdma",
+     none with "ppermute", identical audio, and the sharded audio against
+     the serial chain on the card and the same call on the CPU; the halo
+     kernel timed beside an empty launch, its plain version and the slice
+     copy PyTorch would make;
+  8. the time-major tier off the planar coupling (TMAJOR: the HEADLINE
+     config with 16200 frames a chunk, both profiles, and a 33-tap passband
+     that has no in-tail FIR block): launch counts, audio against the
+     chan-major tier on the card, ms a chunk, and both kernels against
+     their plain versions at that shape, the non-FIR tail on the time-major
+     passband that branch produced.
+Each kernel's line in the JSON summary carries its launches on the main
+paths, its time, its plain version's, its bound on this card (bytes over
+3.35 TB/s against operations over the peak rate of their type) and, where
+one PyTorch call computes the same function, that call's time.
 The last lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. It exits non-zero, printing no result,
 when no CUDA device is present. It imports nothing of JAX.
@@ -64,6 +87,33 @@ CHANMAJOR = dict(time_major=False, pallas_fold=True, tail_impl="pallas",
 # FFT and summation orders, the tail bound again.
 TOL_SNR_DB = {"chan_fast": 50.0, "chan_quality": 100.0, "tail": 80.0,
               "fold": 110.0, "cpu": 80.0}
+# the time-major tier against the chan-major tier on the card: the fast
+# profile's FIR tail rounds its operands to bf16, the chan-major passband
+# is a float32 matmul
+TOL_TIER_DB = {"fast": 45.0, "quality": 80.0}
+
+# the time-major tier off the planar coupling: 16200 frames a chunk, which
+# neither profile's chan_tile_t divides
+TMAJOR = dict(MID, chunk_in=2560 * 16200)
+# the reference's hardware shapes for the sharded chain
+SHARDED = dict(mode="AM", iq_rate=12_000, audio_rate=48_000, chunk=1 << 17,
+               os_block=1 << 17, n_taps=257, passband_impl="matmul")
+SHARDED_RX, SHARDED_D = 8, 8
+
+# H100 SXM data-sheet peaks, for the kernels' bounds
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+
+
+def bound_ms(n_bytes: float, flops: dict) -> tuple[float, str]:
+    """The least time the card could take: every input byte read once and
+    every output byte written once over the memory rate, against the
+    operations of each type over that type's peak rate (the units run side
+    by side, so the slowest one bounds)."""
+    t_bytes = n_bytes / HBM_BYTES_S
+    t_ops = max((n / PEAK_FLOPS[k] for k, n in flops.items()), default=0.0)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def _snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
@@ -102,10 +152,60 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_queued(fn, iters: int, device) -> float:
+    """Mean device time of fn() when the launches are already queued: a
+    few large matrix products keep the card busy while the host enqueues
+    `iters` calls, so the events bracket work the card runs back to back.
+    For calls shorter than the host takes to enqueue them, where `cuda_ms`
+    measures the host."""
+    a = torch.randn(8192, 8192, device=device)
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(6):
+        a @ a
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_share(label: str, step, calls: int = 2, rows: int = 10) -> None:
+    """Where the device time of `calls` runs of step() goes, and how much
+    of the host's wall the card was idle: kernel events from
+    torch.profiler against the wall of the same calls run unprofiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+    kernel_ms = sum(e.device_time_total for e in prof.events()
+                    if e.device_type == DeviceType.CUDA) * 1e-3
+    print(f"profile {label} ({calls} calls): kernel time "
+          f"{kernel_ms / calls:.3f} ms a call, host wall "
+          f"{wall_ms / calls:.3f} ms a call unprofiled, device idle share "
+          f"{max(0.0, 1.0 - kernel_ms / wall_ms) * 100:.1f} %", flush=True)
+    print(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                    row_limit=rows), flush=True)
+
+
 def _chan_case(cfg, params, gen, *, i16: bool, device,
-               nf: int | None = None):
+               nf: int | None = None, layout: str = "raw3"):
     """(wrapper call, plain call) of the channelizer on one random chunk of
-    nf frames (default: the config's)."""
+    nf frames (default: the config's); layout "time" is the float32
+    time-major store."""
     from supersdr_tpu_torch.ops import cx
     from supersdr_tpu_torch.ops.cuda import channelize_fused as cf
     from supersdr_tpu_torch.runtime import wideband as wb
@@ -121,36 +221,40 @@ def _chan_case(cfg, params, gen, *, i16: bool, device,
                                 device=device) * 0.05 for _ in range(2)))
     fast = cfg.chan_precision == "default"
     kw = dict(factors=wb._factors_for(cfg), bf16_mxu=fast,
-              out_dtype=torch.bfloat16 if fast else torch.float32)
+              out_dtype=torch.bfloat16 if fast and layout == "raw3"
+              else torch.float32)
 
     def kernel():
-        return cf.channelize_fused_raw3(plan, params.W_pfb, carry, x,
-                                        **kw)[1]
+        return cf.channelize_fused_c(plan, params.W_pfb, carry, x,
+                                     out_layout=layout, **kw)[1]
 
     def plain():
         args, pkw = cf.prepare(plan, params.W_pfb, carry, *x, **kw)
-        return cf.channelize_fused_plain(*args, **pkw)
+        return cf.channelize_fused_plain(*args, **pkw, out_layout=layout)
     return kernel, plain
 
 
-def _tail_case(cfg, params, gen, *, device, raw=None):
+def _tail_case(cfg, params, gen, *, device, raw=None, time2d=False):
     """(wrapper call, plain call) of the FIR tail on raw planes (random
     ones unless given), random history and a fresh state; the config's
-    AGC hang window when it has one."""
+    AGC hang window when it has one. time2d: the 2-D time-major source,
+    float32 planes [nf, C] read as one plane of C columns."""
     from supersdr_tpu_torch.ops import fir_matmul
     from supersdr_tpu_torch.ops.cuda import chain_tail as ct
     from supersdr_tpu_torch.runtime import chain
     from supersdr_tpu_torch.runtime import wideband as wb
     ccfg = cfg.chain_cfg
-    n1, n2 = wb._factors_for(cfg)
+    n1, n2 = (1, cfg.n_chan) if time2d else wb._factors_for(cfg)
     nf, C, ov = ccfg.chunk, cfg.n_chan, cfg.n_taps - 1
     PER = ccfg.interp_plan.per
     fast = cfg.passband_precision == "default"
     if raw is None:
         raw = [torch.randn(n1, nf, n2, generator=gen, device=device) * 0.05
                for _ in range(2)]
-        if fast:
+        if fast and not time2d:
             raw = [r.to(torch.bfloat16) for r in raw]
+    elif time2d:
+        raw = [r[None] for r in raw]
     head = [torch.randn(ov, C, generator=gen, device=device) * 0.05
             for _ in range(2)]
     st = torch.zeros(4 + PER, C, device=device)
@@ -203,28 +307,32 @@ def _fm_carriers(C: int, nf: int, gen, device) -> torch.Tensor:
 
 def _am_case(C: int, nf: int, gen, *, device, mode: str = "AM",
              agc: dict | None = None, hang_ms: float | None = None,
-             accum: bool = False, y=None):
-    """(wrapper call, plain call) of the non-FIR tail on y [C, nf]
-    (chain-major complex, random noise or FM carriers unless given) read
-    through strided views and written chain-major, as the chain's tail
-    tier runs it; a fresh state."""
+             accum: bool = False, y=None, yT=None, n_taps: int = 257):
+    """(wrapper call, plain call) of the non-FIR tail on a fresh state.
+    On y [C, nf] (chain-major complex, random noise or FM carriers unless
+    given) read through strided views and written chain-major, as the
+    chain's tail tier runs it. With yT, a (re, im) pair of contiguous
+    time-major planes [nf, C]: read as they lie and written time-major
+    with the power row, as the time-major wideband tier runs it."""
     from supersdr_tpu_torch.ops.cuda import chain_tail as ct
     from supersdr_tpu_torch.runtime import chain
-    ccfg = chain.ChainConfig(mode=mode, chunk=nf, os_block=nf, n_taps=257,
-                             hang_enabled=hang_ms is not None,
+    ccfg = chain.ChainConfig(mode=mode, chunk=nf, os_block=nf,
+                             n_taps=n_taps, hang_enabled=hang_ms is not None,
                              hang_ms=hang_ms or 500.0)
     params = chain.make_params(ccfg, agc_kwargs=dict(
         agc or {}, hang=hang_ms is not None), device=device)
-    if y is None:
+    if y is None and yT is None:
         y = (_fm_carriers(C, nf, gen, device) if mode == "NBFM" else
              torch.randn(C, nf, generator=gen, device=device,
                          dtype=torch.complex64) * 0.05)
     st = chain._state_rows(ccfg, chain.init_state(ccfg, (C,), device=device))
-    args = (y.real.T, y.imag.T, st, chain._tail_params_vec(params, ccfg),
+    planes = (y.real.T, y.imag.T) if yT is None else tuple(yT)
+    args = (*planes, st, chain._tail_params_vec(params, ccfg),
             params.P_interp)
-    kw = dict(tile_t=chain._tail_tile(nf, 257), demod=chain._tail_demod(ccfg),
-              accum_pow=accum, hang_window=chain._tail_hang_window(ccfg),
-              audio_layout="chan")
+    kw = dict(tile_t=chain._tail_tile(nf, n_taps), demod=chain._tail_demod(ccfg),
+              accum_pow=accum or yT is not None,
+              hang_window=chain._tail_hang_window(ccfg),
+              audio_layout="chan" if yT is None else "time")
     return (lambda: ct.chain_tail_am(*args, **kw),
             lambda: ct.chain_tail_am_plain(*args, **kw))
 
@@ -258,19 +366,29 @@ def phase_kernels(shape: dict, device, err: dict, seed: int = 7) -> None:
     tiers), USB, NBFM and AM with hang, and with a ragged last time tile
     (640 frames); the fold, also on 13 frames; the non-FIR tail on AM with
     hang off and on (500 and 40 ms), USB, NBFM on FM carriers with manual
-    AGC, with the power row, and on 640 frames."""
+    AGC, with the power row, on 640 frames, and on time-major planes with
+    time-major audio (AM, USB with hang). Also the channelizer's time-major
+    store (on the config's frames and on 24, float32 and int16 input) and
+    the FIR tail's 2-D time-major source, both tiers."""
     from supersdr_tpu_torch.runtime import wideband as wb
     gen = torch.Generator(device=device).manual_seed(seed)
     for prof in ("fast", "quality"):
         cfg = wb.WidebandConfig(**shape, **wb.PROFILES[prof])
         params = wb.make_params(cfg, device=device)
-        for i16, nf in ((False, None), (True, None), (False, 13)):
-            label = (f"{prof} {'i16' if i16 else 'f32'} "
+        for i16, nf, layout in ((False, None, "raw3"), (True, None, "raw3"),
+                                (False, 13, "raw3"), (False, None, "time"),
+                                (False, 24, "time"), (True, None, "time"),
+                                (True, 24, "time")):
+            label = (f"{prof} {'i16' if i16 else 'f32'} {layout} "
                      f"nf={nf or cfg.chunk_per_chan}")
             _compare("channelize_fused", label,
                      *_chan_case(cfg, params, gen, i16=i16, device=device,
-                                 nf=nf),
+                                 nf=nf, layout=layout),
                      TOL_SNR_DB["chan_" + prof], device, err)
+        _compare("chain_tail", f"{prof} AM 2-D source "
+                 f"nf={cfg.chunk_per_chan}",
+                 *_tail_case(cfg, params, gen, device=device, time2d=True),
+                 TOL_SNR_DB["tail"], device, err)
     ragged = dict(shape, chunk_in=shape["n_chan"] * 640)
     cases = [(shape, c) for c in TAIL_CASES] + [
         (ragged, ("fast", "AM", None)), (ragged, ("quality", "USB", None))]
@@ -304,16 +422,24 @@ def phase_kernels(shape: dict, device, err: dict, seed: int = 7) -> None:
         _compare("chain_tail_am", f"{label} nf={n}",
                  *_am_case(C, n, gen, device=device, **kw),
                  TOL_SNR_DB["tail"], device, err)
+    for label, kw in (("AM", {}), ("USB hang 40 ms",
+                                   dict(mode="USB", hang_ms=40.0))):
+        yT = [torch.randn(nf, C, generator=gen, device=device) * 0.05
+              for _ in range(2)]
+        _compare("chain_tail_am", f"{label} time-major nf={nf}",
+                 *_am_case(C, nf, gen, device=device, yT=yT, **kw),
+                 TOL_SNR_DB["tail"], device, err)
 
 
 def _wrappers() -> dict:
     """Each kernel's wrapper by its name in the JSON summary."""
     from supersdr_tpu_torch.ops.cuda import chain_tail as ct
     from supersdr_tpu_torch.ops.cuda import channelize_fused as cf
+    from supersdr_tpu_torch.ops.cuda import halo
     from supersdr_tpu_torch.ops.cuda import pfb_fold as pf
     return {"channelize_fused": cf.channelize_fused_raw3,
             "chain_tail": ct.chain_tail_fir, "pfb_fold": pf.pfb_fold,
-            "chain_tail_am": ct.chain_tail_am}
+            "chain_tail_am": ct.chain_tail_am, "halo": halo.left_halo}
 
 
 def _reset_counts() -> None:
@@ -371,7 +497,7 @@ def phase_main_path(shape: dict, device, seed: int = 1) -> dict:
                     or not finite or min(mean_abs) <= 0:
                 raise AssertionError(f"main path {prof} {kind} failed")
     launches = _counts()
-    if launches["pfb_fold"] or launches["chain_tail_am"]:
+    if launches["pfb_fold"] or launches["chain_tail_am"] or launches["halo"]:
         raise AssertionError(f"planar main path ran another tier: {launches}")
     return {"launches": launches, "runs": runs}
 
@@ -442,7 +568,7 @@ def phase_chanmajor(shape: dict, device, seed: int = 2) -> dict:
           f"{len(chunks)} chunks; audio {tuple(outs[0].shape)} "
           f"finite={finite} mean|a|={mean_abs}", flush=True)
     want = {"channelize_fused": 0, "chain_tail": 0, "pfb_fold": len(chunks),
-            "chain_tail_am": len(chunks)}
+            "chain_tail_am": len(chunks), "halo": 0}
     if launches != want or not shape_ok or not finite or min(mean_abs) <= 0:
         raise AssertionError("chan-major main path failed")
     return {"launches": launches, "cfg": cfg, "params": params,
@@ -562,7 +688,7 @@ def phase_controls(shape: dict, device, seed: int = 5) -> None:
               f"chunks; finite={finite}; squelch open share {opened:.3f}",
               flush=True)
         want = {"channelize_fused": len(chunks), "chain_tail": len(chunks),
-                "pfb_fold": 0, "chain_tail_am": 0}
+                "pfb_fold": 0, "chain_tail_am": 0, "halo": 0}
         if launches != want or not finite \
                 or (label == "squelch" and opened != 0.0):
             raise AssertionError(f"planar {label} failed")
@@ -641,13 +767,421 @@ def phase_chain(device, seed: int = 6) -> None:
                   res["cpu"][0], tol)
 
 
-def _summary(name: str, source: str, replaces: str, launches: int,
-             err: dict, times: tuple) -> dict:
+def phase_halo(device, err: dict, seed: int = 8) -> None:
+    """The halo kernel against its plain version, bit for bit (a copy
+    agrees exactly or is wrong): float32, int16 pairs and complex64; 1, 16
+    and 256 samples; 1, 2 and 8 shards; 1, 8 and 2560 rows; a strided
+    source; a −inf fill; two hops; with and without a head for shard 0;
+    and a several-hop context written in place."""
+    from supersdr_tpu_torch.ops.cuda import halo
+    from supersdr_tpu_torch.parallel import collectives
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n_local, n_cases = 512, 0
+
+    def rand(shape, kind):
+        if kind == "i16":
+            return (torch.randn(shape, generator=gen, device=device) * 3000
+                    ).to(torch.int16)
+        if kind == "c64":
+            return torch.randn(shape, generator=gen, device=device,
+                               dtype=torch.complex64)
+        return torch.randn(shape, generator=gen, device=device)
+
+    def check(label, x, n, fill=0.0, **kw):
+        nonlocal n_cases
+        got = halo.left_halo(x, n, fill, **kw)
+        want = halo.left_halo_plain(x, n, fill, **kw)
+        _sync(device)
+        pairs = [(got, want)] if isinstance(got, torch.Tensor) \
+            else list(zip(got, want))
+        for g, w in pairs:
+            if g.shape != w.shape or not torch.equal(
+                    torch.view_as_real(g) if g.is_complex() else g,
+                    torch.view_as_real(w) if w.is_complex() else w):
+                raise AssertionError(f"halo {label} differs from its plain "
+                                     f"version")
+        n_cases += 1
+
+    for kind in ("f32", "i16", "c64"):
+        for n in (1, 16, 256):
+            for D in (1, 2, 8):
+                for R in (1, 8, 2560):
+                    x = rand((R, D, n_local), kind)
+                    if kind == "i16":
+                        x = (x, rand((R, D, n_local), kind))
+                    check(f"{kind} n={n} D={D} R={R}", x, n)
+                    head = rand((R, n), kind)
+                    if kind == "i16":
+                        head = (head, rand((R, n), kind))
+                    check(f"{kind} n={n} D={D} R={R} head0", x, n,
+                          head0=head)
+    x = rand((8, 8, 2 * n_local), "f32")[:, :, ::2]      # element stride 2
+    check("strided source", x, 16)
+    check("strided batch", rand((16, 8, n_local), "f32")[::2], 16)
+    check("fill -inf", rand((8, 8, n_local), "f32"), 16, -torch.inf)
+    check("two hops", rand((8, 8, n_local), "c64"), 256, hop=2)
+    check("nine hops", rand((8, 8, n_local), "f32"), 4, 1.5, hop=9)
+    xs = rand((8, 8, 64), "f32")
+    ctx = collectives.left_context(xs, 150, fill=-torch.inf)
+    ref = collectives.left_context(xs, 150, fill=-torch.inf,
+                                   impl="ppermute")
+    _sync(device)
+    if not torch.equal(ctx, ref):
+        raise AssertionError("halo left_context differs from its plain "
+                             "version")
+    err["halo"] = 0.0
+    print(f"kernel halo: {n_cases + 1} cases bit-exact against the plain "
+          f"version", flush=True)
+
+
+def _sharded_iq(n_chan: int, n: int, fs: float, seed: int) -> np.ndarray:
+    """AM carriers at a few hundred Hz over noise, [n_chan, n] complex64."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / fs
+    f_c = rng.uniform(-500.0, 500.0, size=(n_chan, 1))
+    z = 0.3 * (1 + 0.6 * np.sin(2 * np.pi * 700.0 * t)) * np.exp(
+        2j * np.pi * f_c * t)
+    return (z + 0.01 * (rng.normal(size=z.shape) + 1j * rng.normal(
+        size=z.shape))).astype(np.complex64)
+
+
+def phase_sharded(device, seed: int = 9, iters: int = 5) -> dict:
+    """The sharded receiver chain on one card. Two configs, two chained
+    calls each: SHARDED (8 receivers × 8 time shards of 131072 samples, AM,
+    matmul passband) and a 2 × 4 chan × time grid (USB, fft passband, AGC
+    on). halo_impl="rdma" must launch the halo kernel as often as the mode
+    exchanges halos (AM: filter history, DC block, resampler: 3 a call;
+    USB: 2) and "ppermute" never; both give identical audio; the sharded
+    audio must equal the serial chain on the whole capture on the card and
+    the same sharded calls on the CPU. Prints ms a call and input
+    Msamples/s for sharded and serial."""
+    from supersdr_tpu_torch.parallel import mesh, sharded_chain
+    from supersdr_tpu_torch.runtime import chain
+    cpu = torch.device("cpu")
+    tol = TOL_SNR_DB["cpu"]
+    agc_on = dict(on=True, thresh_db=-80, decay_ms=1000)
+    cases = (
+        ("SHARDED 8x(1x8) AM matmul", SHARDED, (1, SHARDED_D), 3),
+        ("grid 8x(2x4) USB fft", dict(SHARDED, mode="USB",
+                                      passband_impl="fft"), (2, 4), 2))
+    total = 0
+    for label, kw, grid, halos in cases:
+        cfg = chain.ChainConfig(**kw)
+        n = cfg.chunk * grid[1]
+        offs = np.linspace(-300.0, 300.0, SHARDED_RX)
+        iq = _sharded_iq(SHARDED_RX, 2 * n, cfg.iq_rate, seed)
+        calls = [iq[:, :n], iq[:, n:]]
+
+        def run(dev, impl):
+            m = mesh.make_mesh(*grid, device=dev)
+            proc = sharded_chain.build(cfg, m, halo_impl=impl)
+            p = sharded_chain.make_params(cfg, SHARDED_RX, offs,
+                                          agc_kwargs=agc_on, device=dev)
+            st = sharded_chain.init_state(cfg, SHARDED_RX, device=dev)
+            outs = []
+            for c in calls:
+                st, out = proc(p, st, c)
+                outs.append(out.audio)
+            _sync(dev)
+            return proc, p, st, torch.cat(outs, dim=-1)
+
+        _reset_counts()
+        proc, p, st, audio = run(device, "rdma")
+        launches = _counts()
+        _reset_counts()
+        _, _, _, audio_pp = run(device, "ppermute")
+        launches_pp = _counts()
+        same = torch.equal(audio, audio_pp)
+        finite = bool(torch.isfinite(audio).all())
+        print(f"sharded {label}: halo launches rdma {launches['halo']} "
+              f"(want {halos * len(calls)}), ppermute {launches_pp['halo']}; "
+              f"identical audio {same}; audio {tuple(audio.shape)} "
+              f"finite={finite}", flush=True)
+        others = sum(v for k, v in launches.items() if k != "halo")
+        if launches["halo"] != halos * len(calls) or launches_pp["halo"] \
+                or others or not same or not finite:
+            raise AssertionError(f"sharded {label} failed")
+        total += launches["halo"]
+        # the serial chain on each whole call, on the card
+        scfg = chain.ChainConfig(**dict(kw, chunk=n, os_block=cfg.chunk))
+        sp = chain.make_params(scfg, freq_offset_hz=offs, agc_kwargs=agc_on,
+                               device=device)
+        sst = chain.init_state(scfg, (SHARDED_RX,), device=device)
+        souts = []
+        for c in calls:
+            sst, out = chain.process(scfg, sp, sst, c)
+            souts.append(out.audio)
+        _close_to_cpu(f"sharded {label} vs serial chain on the card",
+                      audio.cpu().numpy(),
+                      torch.cat(souts, dim=-1).cpu().numpy(), tol)
+        _, _, _, audio_cpu = run(cpu, "rdma")
+        _close_to_cpu(f"sharded {label}", audio.cpu().numpy(),
+                      audio_cpu.numpy(), tol)
+        x = torch.as_tensor(calls[0], device=device)
+        hold = [st, sst]
+
+        def step_sharded():
+            hold[0], out = proc(p, hold[0], x)
+            return out.audio.abs().mean()
+
+        def step_serial():
+            hold[1], out = chain.process(scfg, sp, hold[1], x)
+            return out.audio.abs().mean()
+        for name, fn in (("sharded", step_sharded), ("serial", step_serial)):
+            ms = cuda_ms(fn, iters)
+            print(f"time {label} {name}: {ms:.3f} ms/call, "
+                  f"{SHARDED_RX * n / (ms * 1e-3) / 1e6:.1f} Msamples/s "
+                  f"input", flush=True)
+            if kw is SHARDED:
+                device_share(f"{label} {name}", fn)
+    return {"launches": {**{k: 0 for k in _wrappers()}, "halo": total}}
+
+
+def phase_halo_timing(device, iters: int = 200, seed: int = 10) -> dict:
+    """The halo kernel at the sharded chain's passband exchange (8 rows ×
+    8 shards × 131072 complex samples, 256 of history, the stream's carry
+    as shard 0's head) beside an empty launch, its plain version and the
+    slice copy PyTorch would make (the library yardstick, which the port
+    never calls). Two clocks: the card's time a launch with the launches
+    queued, and the time of one call as the host makes it."""
+    from supersdr_tpu_torch.ops.cuda import halo
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = SHARDED["n_taps"] - 1
+    x = torch.randn(SHARDED_RX, SHARDED_D, SHARDED["chunk"], generator=gen,
+                    device=device, dtype=torch.complex64)
+    head = tuple(torch.randn(SHARDED_RX, n, generator=gen, device=device)
+                 for _ in range(2))
+    head_c = torch.complex(*head)
+    out = torch.empty(SHARDED_RX, SHARDED_D, n, dtype=torch.complex64,
+                      device=device)
+
+    def library():
+        out[:, 1:] = x[:, :-1, -n:]
+        out[:, 0] = head_c
+        return out
+    got = halo.left_halo(x, n, head0=head)
+    _sync(device)
+    if not torch.equal(torch.view_as_real(got),
+                       torch.view_as_real(library())):
+        raise AssertionError("halo disagrees with the slice copy")
+    calls = {"kernel": lambda: halo.left_halo(x, n, head0=head, out=out),
+             "plain": lambda: halo.left_halo_plain(x, n, head0=head,
+                                                   out=out),
+             "library": library,
+             "empty": lambda: halo.empty_launch(device)}
+    # on the card (launches queued behind other work) and as a caller sees
+    # one call (the host's Python and ctypes work included)
+    dev_ms = {k: cuda_ms_queued(f, iters, device) for k, f in calls.items()}
+    call_ms = {k: cuda_ms(f, iters) for k, f in calls.items()}
+    moved = 2 * out.numel() * out.element_size()     # read once, write once
+    b_ms, by = bound_ms(moved, {})
+    print(f"time halo [{SHARDED_RX}, {SHARDED_D}, {n}] complex64 on the "
+          f"card: kernel {dev_ms['kernel'] * 1e3:.2f} us, plain "
+          f"{dev_ms['plain'] * 1e3:.2f} us, slice copy "
+          f"{dev_ms['library'] * 1e3:.2f} us, empty launch "
+          f"{dev_ms['empty'] * 1e3:.2f} us, bytes bound {b_ms * 1e3:.3f} us "
+          f"({moved} bytes)", flush=True)
+    print(f"time halo a call from the host: kernel "
+          f"{call_ms['kernel'] * 1e3:.2f} us, plain "
+          f"{call_ms['plain'] * 1e3:.2f} us, slice copy "
+          f"{call_ms['library'] * 1e3:.2f} us, empty launch "
+          f"{call_ms['empty'] * 1e3:.2f} us", flush=True)
+    return {"halo": (dev_ms["kernel"], dev_ms["plain"]),
+            "halo_library": dev_ms["library"],
+            "halo_empty": dev_ms["empty"], "halo_call": call_ms["kernel"],
+            "halo_bound": (b_ms, by)}
+
+
+def phase_tmajor(device, err: dict, planar_ms: dict, iters: int = 5,
+                 seed: int = 11) -> dict:
+    """The time-major tier off the planar coupling at TMAJOR (2560 channels
+    × 16200 frames), both profiles: the reference's predicates put it
+    there; one channelizer and one FIR-tail launch a chunk; audio
+    [frames·4, 2560] finite, against the chan-major tier's audio on the
+    card at the same chunk; ms a chunk beside the planar path's; the
+    channelizer's time store and the tail's 2-D source against their plain
+    versions at this shape. Then a 33-tap passband (no in-tail FIR block):
+    the standalone Toeplitz passband and the non-FIR tail."""
+    from supersdr_tpu_torch.ops import cx
+    from supersdr_tpu_torch.runtime import wideband as wb
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = TMAJOR["chunk_in"]
+    chunks = [cx.CX(*(torch.randn(n, generator=gen, device=device) * 0.05
+                      for _ in range(2))) for _ in range(2)]
+    total = {k: 0 for k in _wrappers()}
+    times = {}
+    for prof in ("fast", "quality"):
+        cfg = wb.WidebandConfig(**TMAJOR, **wb.PROFILES[prof])
+        if wb._planar_active(cfg) or not wb._tmajor_fused_ok(cfg):
+            raise AssertionError(f"TMAJOR {prof} is on another tier")
+        params = wb.make_params(cfg, device=device)
+        _reset_counts()
+        st, outs = wb.process_n(cfg, params, wb.init_state(cfg, device=device),
+                                chunks)
+        _sync(device)
+        launches = _counts()
+        want = {**{k: 0 for k in launches},
+                "channelize_fused": len(chunks), "chain_tail": len(chunks)}
+        shape_ok = all(tuple(a.shape) == (cfg.chunk_per_chan * 4, cfg.n_chan)
+                       for a in outs)
+        finite = all(bool(torch.isfinite(a).all()) for a in outs)
+        print(f"main path tmajor {prof}: launches {launches} for "
+              f"{len(chunks)} chunks; audio {tuple(outs[0].shape)} "
+              f"finite={finite}", flush=True)
+        if launches != want or not shape_ok or not finite:
+            raise AssertionError(f"tmajor {prof} failed")
+        for k, v in launches.items():
+            total[k] += v
+        ccfg = wb.WidebandConfig(**TMAJOR, **dict(wb.PROFILES[prof],
+                                                  time_major=False))
+        _, outs_c = wb.process_n(ccfg, params,
+                                 wb.init_state(ccfg, device=device), chunks)
+        for k, (a, c) in enumerate(zip(outs, outs_c)):
+            snr = _snr_db(c.T, a)
+            print(f"tmajor {prof} chunk {k} vs chan-major tier: snr "
+                  f"{snr:.2f} dB (tol {TOL_TIER_DB[prof]} dB)", flush=True)
+            if not snr >= TOL_TIER_DB[prof]:
+                raise AssertionError(f"tmajor {prof} disagrees with the "
+                                     f"chan-major tier")
+        del outs_c
+        # int16 ingest goes to the kernel as it is: the same audio as the
+        # dequantized float32 chunk
+        q = tuple((p * 32768.0).round().clamp(-32768, 32767).to(torch.int16)
+                  for p in chunks[0])
+        deq = cx.CX(*(p.float() * (1.0 / 32768.0) for p in q))
+        _, o_q = wb.process(cfg, params, wb.init_state(cfg, device=device), q)
+        _, o_f = wb.process(cfg, params, wb.init_state(cfg, device=device),
+                            deq)
+        snr = _snr_db(o_f.audio, o_q.audio)
+        print(f"tmajor {prof} i16 vs dequantized f32: snr {snr:.2f} dB "
+              f"(tol {TOL_SNR_DB['cpu']} dB)", flush=True)
+        if not snr >= TOL_SNR_DB["cpu"]:
+            raise AssertionError(f"tmajor {prof} i16 ingest disagrees")
+        del o_q, o_f, q, deq
+        hold = [st]
+
+        def step():
+            hold[0], o = wb.process_n(cfg, params, hold[0], chunks)
+            return o[-1].abs().mean()
+        ms = cuda_ms(step, iters) / len(chunks)
+        print(f"time main path tmajor {prof} f32: {ms:.3f} ms/chunk, "
+              f"{cfg.chunk_in / (ms * 1e-3) / 1e6:.1f} Msamples/s input "
+              f"(planar at 16128 frames: {planar_ms[prof]:.3f} ms/chunk)",
+              flush=True)
+        times[f"main_tmajor_{prof}"] = ms
+        label = f"{prof} nf={cfg.chunk_per_chan}"
+        kernel, plain = _chan_case(cfg, params, gen, i16=False,
+                                   device=device, layout="time")
+        _compare("channelize_fused", f"{label} time", kernel, plain,
+                 TOL_SNR_DB["chan_" + prof], device, err)
+        times[f"channelize_fused_time_{prof}"] = (cuda_ms(kernel, iters),
+                                                  cuda_ms(plain, 2))
+        kernel, plain = _tail_case(cfg, params, gen, device=device,
+                                   raw=kernel(), time2d=True)
+        _compare("chain_tail", f"{label} AM 2-D source", kernel, plain,
+                 TOL_SNR_DB["tail"], device, err)
+        times[f"chain_tail_2d_{prof}"] = (cuda_ms(kernel, iters),
+                                          cuda_ms(plain, 2))
+        for name in ("channelize_fused_time", "chain_tail_2d"):
+            k_ms, p_ms = times[f"{name}_{prof}"]
+            print(f"time {name} {prof}: kernel {k_ms:.3f} ms, plain "
+                  f"{p_ms:.3f} ms", flush=True)
+    # no in-tail FIR block: 32 taps of history are under the 64 a block
+    # needs, and the standalone block (128) divides 16128 frames
+    cfg = wb.WidebandConfig(**dict(HEADLINE, n_taps=33),
+                            **wb.PROFILES["quality"])
+    params = wb.make_params(cfg, device=device)
+    if wb._planar_active(cfg) or not wb._tmajor_fused_ok(cfg) \
+            or params.chain.W_tailpass is not None:
+        raise AssertionError("the 33-tap config is on another tier")
+    short = [cx.CX(c.re[:cfg.chunk_in], c.im[:cfg.chunk_in]) for c in chunks]
+    _reset_counts()
+    st, out = wb.process(cfg, params, wb.init_state(cfg, device=device),
+                         short[0])
+    st, out = wb.process(cfg, params, st, short[1])
+    _sync(device)
+    launches = _counts()
+    want = {**{k: 0 for k in launches}, "channelize_fused": 2,
+            "chain_tail_am": 2}
+    # the non-FIR tail as this branch launched it (time-major planes, the
+    # power row, time-major audio) against its plain version, on the
+    # passband the path produced
+    _compare("chain_tail_am", f"AM time-major nf={cfg.chunk_per_chan}",
+             *_am_case(cfg.n_chan, cfg.chunk_per_chan, gen, device=device,
+                       yT=(out.baseband.re, out.baseband.im),
+                       n_taps=cfg.n_taps),
+             TOL_SNR_DB["tail"], device, err)
+    ccfg = wb.WidebandConfig(**dict(HEADLINE, n_taps=33),
+                             **dict(wb.PROFILES["quality"],
+                                    time_major=False))
+    cst, _ = wb.process(ccfg, params, wb.init_state(ccfg, device=device),
+                        short[0])
+    _, out_c = wb.process(ccfg, params, cst, short[1])
+    snr = _snr_db(out_c.audio.T, out.audio)
+    bb = _snr_db(out_c.baseband.re.T, out.baseband.re)
+    print(f"main path tmajor 33 taps (standalone passband): launches "
+          f"{launches}; audio {tuple(out.audio.shape)}; vs chan-major tier "
+          f"snr {snr:.2f} dB, baseband {bb:.2f} dB (tol "
+          f"{TOL_TIER_DB['quality']} dB)", flush=True)
+    if launches != want or not min(snr, bb) >= TOL_TIER_DB["quality"] \
+            or not bool(torch.isfinite(out.audio).all()):
+        raise AssertionError("tmajor standalone-passband branch failed")
+    for k, v in launches.items():
+        total[k] += v
+    return {"launches": total, "times": times}
+
+
+def kernel_bounds(halo_bound: tuple) -> dict:
+    """Each kernel's bound at the shape it is timed at (HEADLINE: 2560
+    channels × 16128 frames; the fast tier for the channelizer and the FIR
+    tail), from the shapes alone."""
+    from supersdr_tpu_torch.ops import channelizer
+    from supersdr_tpu_torch.runtime import wideband as wb
+    cfg = wb.WidebandConfig(**HEADLINE, **wb.PROFILES["fast"])
+    ccfg = cfg.chain_cfg
+    M, K, nf = cfg.n_chan, cfg.taps_per, cfg.chunk_per_chan
+    n1, n2 = channelizer._pick_factors(M)
+    per, L = ccfg.interp_plan.per, ccfg.upsample
+    ov = cfg.n_taps - 1
+    samples = nf * M
+    state = (4 + per) * M * 4 * 2
+    tail_flops = samples * (2 * per * L + 40)   # resampler + the scalar ops
+    return {
+        # f32 planes in, bf16 raw planes out; fold and stage A in float32,
+        # stage B on bf16 operands
+        "channelize_fused": bound_ms(
+            2 * 4 * (samples + (K - 1) * M) + 4 * K * M
+            + 8 * n1 * n1 * n2 + 8 * n2 * n2 + 2 * 2 * samples,
+            {"fp32": samples * (4 * K + 8 * n1),
+             "bf16": samples * 8 * n2}),
+        # bf16 raw planes and f32 history in, f32 audio out; real taps on
+        # bf16 operands, the rest in float32
+        "chain_tail": bound_ms(
+            2 * 2 * samples + 2 * 4 * ov * M + state + 4 * samples * L,
+            {"bf16": samples * 4 * cfg.n_taps, "fp32": tail_flops}),
+        "pfb_fold": bound_ms(
+            2 * 4 * (samples + (K - 1) * M) + 4 * K * M + 8 * samples,
+            {"fp32": samples * 4 * K}),
+        "chain_tail_am": bound_ms(8 * samples + state + 4 * samples * L,
+                                  {"fp32": tail_flops}),
+        "halo": halo_bound,
+    }
+
+
+def _summary(name: str, source: str, replaces: str, paths: dict, err: dict,
+             times: tuple, bound: tuple, library_ms=None, **extra) -> dict:
+    """One kernel's line: `launches` sums its launches over the main paths
+    (each driven from a zeroed count), `paths` says where they were."""
+    launches = {k: v["launches"][name] for k, v in paths.items()}
+    if sum(launches.values()) == 0:
+        raise AssertionError(f"no main path launched {name}")
     return {"name": name, "route": "cuda",
             "source": f"supersdr_tpu_torch/csrc/{source}",
             "replaces": f"supersdr_tpu/ops/pallas/{replaces}",
-            "launches": launches, "max_abs_err": err[name],
-            "ms": times[0], "plain_ms": times[1]}
+            "launches": sum(launches.values()), "paths": launches,
+            "max_abs_err": err[name], "ms": times[0], "plain_ms": times[1],
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms, **extra}
 
 
 def main() -> int:
@@ -670,28 +1204,44 @@ def main() -> int:
             print("  ptxas", line.strip(), flush=True)
     err: dict = {}
     phase_kernels(MID, dev, err)
+    phase_halo(dev, err)
     main_path = phase_main_path(HEADLINE, dev)
     chan = phase_chanmajor(HEADLINE, dev)
     times = phase_timing(main_path["runs"], err)
     times.update(phase_chanmajor_timing(chan, err))
+    planar_ms = {p: times[f"main_{p}_f32"] for p in ("fast", "quality")}
+    del main_path["runs"], chan["chunks"]
+    torch.cuda.empty_cache()
     phase_rows(HEADLINE, dev)
     phase_rows(HEADLINE, dev, CHANMAJOR)
     phase_controls(HEADLINE, dev)
     phase_chain(dev)
+    times.update(phase_halo_timing(dev))
+    sharded = phase_sharded(dev)
+    tmajor = phase_tmajor(dev, err, planar_ms)
+    paths = {"planar": main_path, "chanmajor": chan, "sharded": sharded,
+             "tmajor": tmajor}
+    bounds = kernel_bounds(times["halo_bound"])
     kernels = [
         _summary("channelize_fused", "channelize_fused.cu",
-                 "channelize_fused.py:61",
-                 main_path["launches"]["channelize_fused"], err,
-                 times["channelize_fused_fast"]),
-        _summary("chain_tail", "chain_tail.cu", "chain_tail.py:332",
-                 main_path["launches"]["chain_tail"], err,
-                 times["chain_tail_fast"]),
-        _summary("pfb_fold", "pfb_fold.cu", "pfb_fold.py:36",
-                 chan["launches"]["pfb_fold"], err, times["pfb_fold"]),
+                 "channelize_fused.py:61", paths, err,
+                 times["channelize_fused_fast"], bounds["channelize_fused"]),
+        _summary("chain_tail", "chain_tail.cu", "chain_tail.py:332", paths,
+                 err, times["chain_tail_fast"], bounds["chain_tail"]),
+        _summary("pfb_fold", "pfb_fold.cu", "pfb_fold.py:36", paths, err,
+                 times["pfb_fold"], bounds["pfb_fold"]),
         _summary("chain_tail_am", "chain_tail.cu", "chain_tail.py:304",
-                 chan["launches"]["chain_tail_am"], err,
-                 times["chain_tail_am"]),
+                 paths, err, times["chain_tail_am"],
+                 bounds["chain_tail_am"]),
+        _summary("halo", "halo.cu", "halo.py:24", paths, err, times["halo"],
+                 bounds["halo"], library_ms=times["halo_library"],
+                 empty_launch_ms=times["halo_empty"],
+                 call_ms=times["halo_call"]),
     ]
+    for k in kernels:
+        print(f"bound {k['name']}: {k['ms']:.4f} ms against "
+              f"{k['bound_ms']:.4f} ms ({k['bound_by']}), launches "
+              f"{k['paths']}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,14 +2,18 @@
 
 The JAX package `supersdr_tpu` stays the reference; this package mirrors
 its layout (`ops/`, `ops/cuda/` for the hand-written Hopper kernels that
-replace `ops/pallas/`, `runtime/`) and its public names, so each module's
-counterpart is easy to find. It imports `torch` and never `jax`.
+replace `ops/pallas/`, `runtime/`, `parallel/`) and its public names, so
+each module's counterpart is easy to find. It imports `torch` and never
+`jax`.
 
 It runs the receiver chain (`runtime.chain.process` / `run_offline`, every
-mode, passband, resampler and control) and the wideband pipeline's planar,
-chan-major and fallback tiers (`runtime.wideband.process` / `process_n` /
-`process_many` / `process_i16`) on four hand-written kernels. What it does
-not run yet raises `NotImplementedError` naming the ROADMAP item that will
+mode, passband, resampler and control), the wideband pipeline's planar,
+time-major, chan-major and fallback tiers (`runtime.wideband.process` /
+`process_n` / `process_many` / `process_i16`) and the receiver chain
+sharded over a ('chan', 'time') mesh held on one device
+(`parallel.sharded_chain.build`, with the mesh forms of the scans, the
+demodulators and the AGC) on five hand-written kernels. What it does not
+run yet raises `NotImplementedError` naming the ROADMAP item that will
 bring it. It imports nothing of the JAX package: the two framework-free
 design modules it shares with it (`ops/firdesign`, `ops/passband`) are
 carried over.

@@ -9,8 +9,13 @@
 //   fold[t, r]     = Σ_k g2[k, r]·seg[t+k, r]
 //   Y[k1, t, j2]   = Σ_j1 At[j1·n1+k1, j2]·fold[t, j1·n2+j2]   (twiddle folded)
 //   out[k1, t, k2] = Σ_j2 Y[k1, t, j2]·C2[j2, k2]               (complex)
-// The output keeps the reference's raw planar layout [n1, nf, n2]: planar
-// channel k1·n2 + k2 is PFB bin k2·n1 + k1. int16 input is dequantized
+// The output is the reference's raw planar layout [n1, nf, n2] (planar
+// channel k1·n2 + k2 is PFB bin k2·n1 + k1), or its out_layout="time",
+// [nf, M] with bin k2·n1 + k1 in column order (the wideband time-major tier
+// off the planar coupling), whose stores are n1 elements apart across a
+// warp: a first, uncoalesced version. The layout is a template parameter:
+// output strides passed as kernel arguments slowed the float32 tier ~5 % at
+// the headline shape on an H100. int16 input is dequantized
 // ×in_scale on load; the bf16 tier rounds stage B's operands to bf16
 // (Y here, C2 in the host table) and accumulates in f32.
 //
@@ -64,7 +69,7 @@ __host__ __device__ __forceinline__ int rows_padded(int n1, int T) {
   return (n1 * T + kRowChunk - 1) / kRowChunk * kRowChunk;
 }
 
-template <int T, bool kI16, bool kOutBf16>
+template <int T, bool kI16, bool kOutBf16, bool kTime>
 __global__ void __launch_bounds__(kThreads)
 channelize_kernel(const void* __restrict__ x_re, const void* __restrict__ x_im,
                   float in_scale, const float* __restrict__ head_re,
@@ -196,7 +201,9 @@ channelize_kernel(const void* __restrict__ x_re, const void* __restrict__ x_im,
           const int k1 = row / T;
           const int tg = t0 + row % T;
           if (tg >= nf) continue;
-          const long o = ((long)k1 * nf + tg) * n2 + col;
+          // raw planes [n1, nf, n2], or time-major [nf, M] at bin k2·n1 + k1
+          const long o = kTime ? (long)tg * M + (long)col * n1 + k1
+                               : ((long)k1 * nf + tg) * n2 + col;
           if (kOutBf16) {
             static_cast<__nv_bfloat16*>(out_r)[o] =
                 __float2bfloat16_rn(acc[q][i].x);
@@ -212,14 +219,14 @@ channelize_kernel(const void* __restrict__ x_re, const void* __restrict__ x_im,
   }
 }
 
-template <int T, bool kI16, bool kOutBf16>
+template <int T, bool kI16, bool kOutBf16, bool kTime>
 cudaError_t launch(const void* x_re, const void* x_im, float in_scale,
                    const float* head_re, const float* head_im, const float* g2,
                    const float* at_r, const float* at_i, const float2* c2,
                    void* out_r, void* out_i, int nf, int M, int K, int n1,
                    int n2, int bf16_b, cudaStream_t stream) {
   const size_t smem = (size_t)n2 * (rows_padded(n1, T) + 2) * sizeof(float2);
-  auto kern = channelize_kernel<T, kI16, kOutBf16>;
+  auto kern = channelize_kernel<T, kI16, kOutBf16, kTime>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -231,27 +238,26 @@ cudaError_t launch(const void* x_re, const void* x_im, float in_scale,
 }
 
 template <int T>
-cudaError_t dispatch_io(int in_i16, int out_bf16, const void* x_re,
-                        const void* x_im, float in_scale, const float* head_re,
-                        const float* head_im, const float* g2,
-                        const float* at_r, const float* at_i, const float2* c2,
-                        void* out_r, void* out_i, int nf, int M, int K, int n1,
-                        int n2, int bf16_b, cudaStream_t s) {
-  if (in_i16 && out_bf16)
-    return launch<T, true, true>(x_re, x_im, in_scale, head_re, head_im, g2,
-                                 at_r, at_i, c2, out_r, out_i, nf, M, K, n1,
-                                 n2, bf16_b, s);
-  if (in_i16)
-    return launch<T, true, false>(x_re, x_im, in_scale, head_re, head_im, g2,
-                                  at_r, at_i, c2, out_r, out_i, nf, M, K, n1,
-                                  n2, bf16_b, s);
-  if (out_bf16)
-    return launch<T, false, true>(x_re, x_im, in_scale, head_re, head_im, g2,
-                                  at_r, at_i, c2, out_r, out_i, nf, M, K, n1,
-                                  n2, bf16_b, s);
-  return launch<T, false, false>(x_re, x_im, in_scale, head_re, head_im, g2,
-                                 at_r, at_i, c2, out_r, out_i, nf, M, K, n1,
-                                 n2, bf16_b, s);
+cudaError_t dispatch_io(int in_i16, int out_bf16, int out_time,
+                        const void* x_re, const void* x_im, float in_scale,
+                        const float* head_re, const float* head_im,
+                        const float* g2, const float* at_r, const float* at_i,
+                        const float2* c2, void* out_r, void* out_i, int nf,
+                        int M, int K, int n1, int n2, int bf16_b,
+                        cudaStream_t s) {
+#define SSDR_LAUNCH(I16, BF16, TIME)                                        \
+  return launch<T, I16, BF16, TIME>(x_re, x_im, in_scale, head_re, head_im, \
+                                    g2, at_r, at_i, c2, out_r, out_i, nf, M, \
+                                    K, n1, n2, bf16_b, s)
+  if (out_time) {  // the time-major store writes float32
+    if (in_i16) SSDR_LAUNCH(true, false, true);
+    SSDR_LAUNCH(false, false, true);
+  }
+  if (in_i16 && out_bf16) SSDR_LAUNCH(true, true, false);
+  if (in_i16) SSDR_LAUNCH(true, false, false);
+  if (out_bf16) SSDR_LAUNCH(false, true, false);
+  SSDR_LAUNCH(false, false, false);
+#undef SSDR_LAUNCH
 }
 
 }  // namespace
@@ -269,32 +275,38 @@ int channelize_fused_tile(int n1, int n2) {
 
 // x_re/x_im: [nf, M] float32 (in_i16 = 0) or int16 (in_i16 = 1, ×in_scale);
 // head_*: [K−1, M] f32 carry rows; g2: [K, M]; at_*: [n1·n1, n2];
-// c2: [n2, n2] interleaved complex; out_*: [n1, nf, n2] f32 or bf16.
+// c2: [n2, n2] interleaved complex; out_*: the raw planes [n1, nf, n2], f32
+// or bf16 (out_time = 0), or the time-major bin-ordered planes [nf, M], f32
+// (out_time = 1: element (k1, t, k2) at t·M + k2·n1 + k1).
 int channelize_fused_raw3(const void* x_re, const void* x_im, int in_i16,
                           float in_scale, const float* head_re,
                           const float* head_im, const float* g2,
                           const float* at_r, const float* at_i,
                           const float* c2, void* out_r, void* out_i,
                           int out_bf16, int nf, int M, int K, int n1, int n2,
-                          int bf16_b, void* stream) {
-  if (n1 * n2 != M || n2 % kTx || K < 1 || K > kKMax || nf < 1)
+                          int bf16_b, int out_time, void* stream) {
+  if (n1 * n2 != M || n2 % kTx || K < 1 || K > kKMax || nf < 1 ||
+      (out_time && out_bf16))
     return (int)cudaErrorInvalidValue;
   const int T = channelize_fused_tile(n1, n2);
   const float2* c2c = reinterpret_cast<const float2*>(c2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (T) {
     case 8:
-      return (int)dispatch_io<8>(in_i16, out_bf16, x_re, x_im, in_scale,
-                                 head_re, head_im, g2, at_r, at_i, c2c, out_r,
-                                 out_i, nf, M, K, n1, n2, bf16_b, s);
+      return (int)dispatch_io<8>(in_i16, out_bf16, out_time, x_re, x_im,
+                                 in_scale, head_re, head_im, g2, at_r, at_i,
+                                 c2c, out_r, out_i, nf, M, K, n1, n2, bf16_b,
+                                 s);
     case 4:
-      return (int)dispatch_io<4>(in_i16, out_bf16, x_re, x_im, in_scale,
-                                 head_re, head_im, g2, at_r, at_i, c2c, out_r,
-                                 out_i, nf, M, K, n1, n2, bf16_b, s);
+      return (int)dispatch_io<4>(in_i16, out_bf16, out_time, x_re, x_im,
+                                 in_scale, head_re, head_im, g2, at_r, at_i,
+                                 c2c, out_r, out_i, nf, M, K, n1, n2, bf16_b,
+                                 s);
     case 2:
-      return (int)dispatch_io<2>(in_i16, out_bf16, x_re, x_im, in_scale,
-                                 head_re, head_im, g2, at_r, at_i, c2c, out_r,
-                                 out_i, nf, M, K, n1, n2, bf16_b, s);
+      return (int)dispatch_io<2>(in_i16, out_bf16, out_time, x_re, x_im,
+                                 in_scale, head_re, head_im, g2, at_r, at_i,
+                                 c2c, out_r, out_i, nf, M, K, n1, n2, bf16_b,
+                                 s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -71,12 +71,19 @@ def hang_samples(fs: float, hang_ms: float = 500.0) -> int:
 
 
 def apply(params: AGCParams, state: AGCState, audio: torch.Tensor,
-          hang_window: int = 1, decimation: int = 1
+          hang_window: int = 1, decimation: int = 1,
+          shard_axis: int | None = None, halo_impl: str = "rdma"
           ) -> tuple[AGCState, torch.Tensor]:
     """AGC over one block, audio [*batch, n] (complex in IQ mode: the
     envelope is |audio|). `hang_window` samples (1 = off); `decimation`
     runs the ballistics on per-group envelope peaks (n % decimation ==
-    0) and repeats the gain back to the sample rate."""
+    0) and repeats the gain back to the sample rate. With `shard_axis=-2`
+    (the reference's `axis_name`) audio is `[*batch, D, n_local]` and the
+    ballistics run exactly across the time shards: the general scans
+    with their cross-shard fold, the hang window reaching into the left
+    shards; the state seeds shard 0 and the returned state holds every
+    shard's (`[*batch, D]`)."""
+    sharded = shard_axis is not None
     env = audio.abs().float()
     n = env.shape[-1]
     if decimation > 1:
@@ -88,12 +95,14 @@ def apply(params: AGCParams, state: AGCState, audio: torch.Tensor,
             hang_window = max(1, hang_window // decimation)
     env_db = 20.0 * torch.log10(torch.clamp_min(env, ENV_FLOOR))
     d = -params.decay_per_sample_db * decimation
-    if d.ndim == 0:
+    if d.ndim == 0 and not sharded:
         peak_db = scans.maxplus_scan_const(d, env_db, state.peak_db)
     else:
-        peak_db = scans.maxplus_scan(d, env_db, state.peak_db)
+        peak_db = scans.maxplus_scan(d, env_db, state.peak_db,
+                                     shard_axis=shard_axis)
     if hang_window > 1:
-        held = scans.sliding_max(peak_db, hang_window)
+        held = scans.sliding_max(peak_db, hang_window,
+                                 shard_axis=shard_axis, halo_impl=halo_impl)
         peak_db = torch.where(params.hang > 0, held, peak_db)
     max_gain = params.target_db - params.thresh_db
     above = (params.target_db - peak_db) + params.slope_db * (
@@ -103,12 +112,12 @@ def apply(params: AGCParams, state: AGCState, audio: torch.Tensor,
     gain_db = torch.where(params.on > 0, auto_gain,
                           params.man_gain_db - MANUAL_UNITY_DB)
     attack = params.attack_coeff ** decimation
-    if attack.ndim == 0:
+    if attack.ndim == 0 and not sharded:
         gain_db = scans.linear_scan_const(attack, (1.0 - attack) * gain_db,
                                           state.gain_db)
     else:
         gain_db = scans.linear_scan(attack, (1.0 - attack) * gain_db,
-                                    state.gain_db)
+                                    state.gain_db, shard_axis=shard_axis)
     new_state = AGCState(peak_db=peak_db[..., -1], gain_db=gain_db[..., -1])
     if decimation > 1:
         gain_db = torch.repeat_interleave(gain_db, decimation, dim=-1)

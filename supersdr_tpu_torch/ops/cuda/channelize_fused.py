@@ -1,15 +1,19 @@
 """Fused channelizer: PFB fold + DIF stage A + stage-B DFT, one pass.
 
 Counterpart of `supersdr_tpu/ops/pallas/channelize_fused.py`
-(`channelize_fused_c(out_layout="raw3")`). The kernel is
+(`channelize_fused_c` with `out_layout` "raw3" and "time"). The kernel is
 `csrc/channelize_fused.cu`; `channelize_fused_plain` is the same function
-in plain PyTorch. `channelize_fused_raw3` runs the plain version for CPU
-tensors and the kernel for CUDA tensors.
+in plain PyTorch. `channelize_fused_c` (and `channelize_fused_raw3`, its
+"raw3" form) runs the plain version for CPU tensors and the kernel for
+CUDA tensors; both count their launches in
+`channelize_fused_raw3.launches` (one kernel, one count).
 
-Output: the raw planar planes [n1, nf, n2], planar channel k1·n2 + k2 =
-PFB bin k2·n1 + k1. The port runs stage B unsplit, so the column order is
-the identity (the reference's radix-2 stage-B split exists to halve TPU
-MXU work; `runtime.wideband._split_levels_for`).
+Output, "raw3": the raw planar planes [n1, nf, n2], planar channel
+k1·n2 + k2 = PFB bin k2·n1 + k1. "time": float32 planes [nf, M] in bin
+order m = k2·n1 + k1, written by the same kernel (a second store
+path). The port runs stage B unsplit, so the column order is the
+identity (the reference's radix-2 stage-B split exists to halve TPU MXU
+work; `runtime.wideband._split_levels_for`).
 """
 
 from __future__ import annotations
@@ -50,11 +54,12 @@ def channelize_fused_plain(g2: torch.Tensor, At_r: torch.Tensor,
                            head_r: torch.Tensor, head_i: torch.Tensor,
                            x_r: torch.Tensor, x_i: torch.Tensor, *,
                            n1: int, n2: int, in_scale: float, bf16_b: bool,
-                           out_dtype: torch.dtype
+                           out_dtype: torch.dtype, out_layout: str = "raw3"
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch channelizer. x_*: [nf, M] f32 (in_scale 0) or int16
     (×in_scale); head_*: [K−1, M] carry rows; g2: [K, M] fold taps.
-    Returns raw planes [n1, nf, n2] in out_dtype."""
+    Returns raw planes [n1, nf, n2] in out_dtype, or for "time" the
+    bin-ordered planes [nf, M]."""
     check_fp32_matmul(x_r)
     nf, M = x_r.shape
     K = g2.shape[0]
@@ -86,11 +91,14 @@ def channelize_fused_plain(g2: torch.Tensor, At_r: torch.Tensor,
     c2r, c2i = c2[..., 0], c2[..., 1]
     out_r = yr @ c2r - yi @ c2i
     out_i = yr @ c2i + yi @ c2r
+    if out_layout == "time":     # [n1, nf, n2] → [nf, n2, n1] → [nf, M]
+        out_r = out_r.permute(1, 2, 0).reshape(nf, M)
+        out_i = out_i.permute(1, 2, 0).reshape(nf, M)
     return out_r.to(out_dtype), out_i.to(out_dtype)
 
 
 def _launch(g2, At_r, At_i, c2, head_r, head_i, x_r, x_i, *, n1, n2,
-            in_scale, bf16_b, out_dtype):
+            in_scale, bf16_b, out_dtype, out_layout="raw3"):
     lib = _build.load()
     nf, M = x_r.shape
     K = g2.shape[0]
@@ -100,7 +108,8 @@ def _launch(g2, At_r, At_i, c2, head_r, head_i, x_r, x_i, *, n1, n2,
     if K > MAX_TAPS_PER:
         raise ValueError(f"the kernel folds at most {MAX_TAPS_PER} taps a "
                          f"branch, got taps_per={K}")
-    out_r = torch.empty(n1, nf, n2, dtype=out_dtype, device=x_r.device)
+    shape = (nf, M) if out_layout == "time" else (n1, nf, n2)
+    out_r = torch.empty(shape, dtype=out_dtype, device=x_r.device)
     out_i = torch.empty_like(out_r)
     p = ctypes.c_void_p
     err = lib.channelize_fused_raw3(
@@ -109,24 +118,31 @@ def _launch(g2, At_r, At_i, c2, head_r, head_i, x_r, x_i, *, n1, n2,
         p(g2.data_ptr()), p(At_r.data_ptr()), p(At_i.data_ptr()),
         p(c2.data_ptr()), p(out_r.data_ptr()), p(out_i.data_ptr()),
         int(out_dtype == torch.bfloat16), nf, M, K, n1, n2, int(bf16_b),
-        p(torch.cuda.current_stream(x_r.device).cuda_stream))
+        int(out_layout == "time"), p(torch.cuda.current_stream(x_r.device).cuda_stream))
     _build.check(err, "channelize_fused_raw3")
     channelize_fused_raw3.launches += 1
     return out_r, out_i
 
 
-def channelize_fused_raw3(plan: channelizer.PFBPlan, W: torch.Tensor,
-                          carry: cx.CX, x, *, factors: tuple[int, int],
-                          bf16_mxu: bool, out_dtype: torch.dtype
-                          ) -> tuple[cx.CX, tuple[torch.Tensor, torch.Tensor]]:
+def channelize_fused_c(plan: channelizer.PFBPlan, W: torch.Tensor,
+                       carry: cx.CX, x, *, factors: tuple[int, int],
+                       bf16_mxu: bool,
+                       out_dtype: torch.dtype = torch.float32,
+                       out_layout: str = "raw3"
+                       ) -> tuple[cx.CX, tuple[torch.Tensor, torch.Tensor]]:
     """One streaming channelizer step (critical sampling).
 
     W: [K, M] polyphase weights; carry: CX [(K−1)·M] history; x: CX of
     [n] float32 planes, or an (re, im) pair of int16 [n] planes
     (dequantized ×1/32768). bf16_mxu rounds stage B's operands to bf16
     (fast tier); out_dtype is float32 or bfloat16. Returns (new_carry,
-    (raw_r, raw_i) [n1, n/M, n2]). CPU tensors run the plain version,
-    CUDA tensors the kernel."""
+    planes): for out_layout "raw3" (raw_r, raw_i) [n1, n/M, n2], for
+    "time" the float32 bin-ordered (re, im) [n/M, M]. CPU tensors run the
+    plain version, CUDA tensors the kernel."""
+    if out_layout not in ("raw3", "time"):
+        raise ValueError("out_layout must be 'raw3' or 'time'")
+    if out_layout == "time" and out_dtype != torch.float32:
+        raise ValueError("out_layout='time' writes float32")
     M, K = plan.n_chan, plan.taps_per
     n1, n2 = factors
     if plan.hop != M:
@@ -165,6 +181,7 @@ def channelize_fused_raw3(plan: channelizer.PFBPlan, W: torch.Tensor,
         new_carry = cx.CX(x_r[-h:].clone(), x_i[-h:].clone())
     args, kw = prepare(plan, W, carry, x_r, x_i, factors=factors,
                        bf16_mxu=bf16_mxu, out_dtype=out_dtype)
+    kw["out_layout"] = out_layout
     if dev.type == "cpu":
         raw = channelize_fused_plain(*args, **kw)
     elif dev.type == "cuda":
@@ -172,6 +189,15 @@ def channelize_fused_raw3(plan: channelizer.PFBPlan, W: torch.Tensor,
     else:
         raise ValueError(f"unsupported device {dev}")
     return new_carry, raw
+
+
+def channelize_fused_raw3(plan: channelizer.PFBPlan, W: torch.Tensor,
+                          carry: cx.CX, x, *, factors: tuple[int, int],
+                          bf16_mxu: bool, out_dtype: torch.dtype
+                          ) -> tuple[cx.CX, tuple[torch.Tensor, torch.Tensor]]:
+    """`channelize_fused_c` with the raw planar planes [n1, n/M, n2]."""
+    return channelize_fused_c(plan, W, carry, x, factors=factors,
+                              bf16_mxu=bf16_mxu, out_dtype=out_dtype)
 
 
 def prepare(plan: channelizer.PFBPlan, W: torch.Tensor, carry: cx.CX,

@@ -134,6 +134,41 @@ def fir_matmul_stream_c(plan: FIRMatmulPlan, W: torch.Tensor, carry: cx.CX,
     return _new_carry(plan, carry, x), cx.CX(yr, yi)
 
 
+def fir_matmul_stream_tmajor_c(plan: FIRMatmulPlan, W: torch.Tensor,
+                               carry_T: cx.CX, xT: cx.CX
+                               ) -> tuple[cx.CX, cx.CX]:
+    """The time-major form of `fir_matmul_stream_c`: the batch rides the
+    last axis, so the wideband time-major tier filters [chunk, C] planes
+    without a transpose. Per time block i, y2_i [2B, C] = Wᵀ·Z_i with
+    Z_i [2W, C] the block's (re ‖ im) window rows; the same W (`build_w`)
+    and the same carry, held time-major [n_taps−1, C]. xT: [chunk, C]
+    with chunk a multiple of the block. Returns (new carry, yT [chunk,
+    C])."""
+    B, Wn = plan.block, plan.window
+    chunk, C = xT.re.shape
+    if chunk % B:
+        raise ValueError("time-major FIR needs chunk % block == 0")
+    nb = chunk // B
+    pre = xT.re.new_zeros(plan.n_prev * B - plan.overlap, C)
+
+    def windows(c, x):          # [nb, W, C]: rows i·B … i·B + W of ext
+        ext = torch.cat([pre, c, x], dim=0)
+        return ext.as_strided((nb, Wn, C), (B * C, C, 1))
+    z = torch.cat([windows(carry_T.re, xT.re), windows(carry_T.im, xT.im)],
+                  dim=1)                                     # [nb, 2W, C]
+    y2 = W.T @ z                                             # [nb, 2B, C]
+    yT = cx.CX(y2[:, :B].reshape(chunk, C), y2[:, B:].reshape(chunk, C))
+    ov = plan.overlap
+    if ov == 0:
+        new_carry = cx.CX(xT.re[:0], xT.im[:0])
+    elif chunk >= ov:
+        new_carry = cx.CX(xT.re[-ov:], xT.im[-ov:])
+    else:
+        new_carry = cx.CX(torch.cat([carry_T.re[chunk:], xT.re], dim=0),
+                          torch.cat([carry_T.im[chunk:], xT.im], dim=0))
+    return new_carry, yT
+
+
 def fir_matmul_stream_real_c(plan: FIRMatmulPlan, W: torch.Tensor,
                              carry: cx.CX, x: cx.CX) -> tuple[cx.CX, cx.CX]:
     """Real taps (W from `build_w_real`) on a complex stream: each plane

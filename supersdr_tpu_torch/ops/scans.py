@@ -1,34 +1,80 @@
 """First-order recurrences along the last axis, evaluated in parallel.
 
-Counterpart of `supersdr_tpu/ops/scans.py` for what the receiver chain
-reads (the `axis_name` forms belong to the mesh and are not ported):
+Counterpart of `supersdr_tpu/ops/scans.py`:
 
   linear   y[n] = a[n]·y[n−1] + b[n]        one-pole IIR, DC block
   max-plus y[n] = max(y[n−1] + a[n], b[n])  dB-domain peak tracker
 
 Both compose associatively, so a log-depth doubling scan evaluates them
 exactly up to float rounding; the time-constant forms use the reference's
-blocked Toeplitz product and its single cumulative max.
+blocked Toeplitz product and its single cumulative max (`torch.cummax`
+stands for the reference's `blocked_cummax`, a TPU memory-pass saving).
+
+Every scan also runs across a time-sharded axis, where the reference takes
+`axis_name` inside `shard_map`: with `shard_axis=-2` the input is `[*batch,
+D, n_local]`, each shard scans its block, the per-shard compositions (A, B)
+are gathered (`parallel/collectives.gather_summaries`, 2·D scalars a scan),
+and each shard folds the shards before it, in order, onto `y0`, which then
+seeds shard 0 only. The fold is sequential in the shard index as the
+reference's, so the sharded result re-associates nothing the reference
+does not. `halo_impl` picks how neighbouring samples travel
+(`collectives.left_halo`). `parallel/collectives` stands here where
+`jax.lax`'s collectives stand in the reference's scans; it is the one
+module of `parallel/` that `ops` imports, and it imports nothing of
+`parallel/` itself (only the halo kernel's wrapper).
 """
 
 from __future__ import annotations
 
 import torch
 
+from supersdr_tpu_torch.parallel import collectives
+from supersdr_tpu_torch.parallel.collectives import left_context, left_halo
+
+__all__ = ["linear_scan", "linear_scan_const", "maxplus_scan",
+           "maxplus_scan_const", "one_pole", "dc_block", "sliding_max",
+           "left_halo", "left_context"]
+
 
 def _as_tensor(v, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(v, dtype=like.dtype, device=like.device)
 
 
-def _align_y0(y0, b: torch.Tensor) -> torch.Tensor:
+def _align_y0(y0, b: torch.Tensor, sharded: bool = False) -> torch.Tensor:
     """y0 (scalar or [*batch]) shaped to broadcast against b with a
-    singleton scan axis."""
+    singleton scan axis (and, sharded, a singleton shard axis)."""
     y0 = _as_tensor(y0, b)
     if y0.ndim == b.ndim:
         return y0
     if y0.ndim == 0:
         return y0.reshape((1,) * b.ndim)
-    return y0.unsqueeze(-1)
+    return y0[..., None, None] if sharded else y0.unsqueeze(-1)
+
+
+def _check_shard_axis(shard_axis, b: torch.Tensor) -> bool:
+    if shard_axis is None:
+        return False
+    if shard_axis not in (-2, b.ndim - 2) or b.ndim < 2:
+        raise NotImplementedError("the shard axis is the one before the "
+                                  "scan axis: [*batch, D, n_local]")
+    return True
+
+
+def _fold_preceding_shards(A: torch.Tensor, B: torch.Tensor, y0, apply_op
+                           ) -> torch.Tensor:
+    """y at each shard's start, [*batch, D, 1]: the gathered summaries of
+    the shards j < s applied in order to y0 (A, B [*batch, D, n]: the
+    local scans, whose last column is each shard's composition)."""
+    sum_a = collectives.gather_summaries(A[..., -1:])     # [D, *batch, 1]
+    sum_b = collectives.gather_summaries(B[..., -1:])
+    my = collectives.shard_index(B)                       # [D, 1]
+    y_in = torch.broadcast_to(_align_y0(y0, B, sharded=True),
+                              B[..., :1].shape)
+    for j in range(sum_a.shape[0]):
+        y_next = apply_op(y_in, sum_a[j].unsqueeze(-2),
+                          sum_b[j].unsqueeze(-2))
+        y_in = torch.where(j < my, y_next, y_in)
+    return y_in
 
 
 def _shift(x: torch.Tensor, s: int, fill: float) -> torch.Tensor:
@@ -38,8 +84,11 @@ def _shift(x: torch.Tensor, s: int, fill: float) -> torch.Tensor:
                       x[..., :x.shape[-1] - s]], dim=-1)
 
 
-def linear_scan(a, b: torch.Tensor, y0) -> torch.Tensor:
-    """y[n] = a[n]·y[n−1] + b[n] with y[−1] = y0."""
+def linear_scan(a, b: torch.Tensor, y0, shard_axis: int | None = None
+                ) -> torch.Tensor:
+    """y[n] = a[n]·y[n−1] + b[n] with y[−1] = y0. With `shard_axis` the
+    recurrence runs across the time shards; y0 then seeds shard 0."""
+    sharded = _check_shard_axis(shard_axis, b)
     A = torch.broadcast_to(_as_tensor(a, b), b.shape)
     B = b
     s = 1
@@ -47,6 +96,9 @@ def linear_scan(a, b: torch.Tensor, y0) -> torch.Tensor:
         B = B + A * _shift(B, s, 0.0)
         A = A * _shift(A, s, 1.0)
         s *= 2
+    if sharded:
+        y0 = _fold_preceding_shards(A, B, y0,
+                                    lambda y, sa, sb: sa * y + sb)
     return A * _align_y0(y0, b) + B
 
 
@@ -74,8 +126,11 @@ def linear_scan_const(a, b: torch.Tensor, y0, block: int = 128
     return y.reshape(b.shape)
 
 
-def maxplus_scan(a, b: torch.Tensor, y0) -> torch.Tensor:
-    """y[n] = max(y[n−1] + a[n], b[n]) with y[−1] = y0."""
+def maxplus_scan(a, b: torch.Tensor, y0, shard_axis: int | None = None
+                 ) -> torch.Tensor:
+    """y[n] = max(y[n−1] + a[n], b[n]) with y[−1] = y0; `shard_axis` as
+    in `linear_scan`."""
+    sharded = _check_shard_axis(shard_axis, b)
     A = torch.broadcast_to(_as_tensor(a, b), b.shape)
     B = b
     s = 1
@@ -83,6 +138,9 @@ def maxplus_scan(a, b: torch.Tensor, y0) -> torch.Tensor:
         B = torch.maximum(_shift(B, s, -torch.inf) + A, B)
         A = A + _shift(A, s, 0.0)
         s *= 2
+    if sharded:
+        y0 = _fold_preceding_shards(
+            A, B, y0, lambda y, sa, sb: torch.maximum(y + sa, sb))
     return torch.maximum(A + _align_y0(y0, b), B)
 
 
@@ -99,11 +157,29 @@ def maxplus_scan_const(a, b: torch.Tensor, y0) -> torch.Tensor:
     return j * a + torch.maximum(cm, y0b + a)
 
 
-def dc_block(x: torch.Tensor, r, y0_x, y0_y
+def one_pole(x: torch.Tensor, coeff, y0, shard_axis: int | None = None
+             ) -> torch.Tensor:
+    """One-pole smoother y[n] = coeff·y[n−1] + (1 − coeff)·x[n]."""
+    coeff = _as_tensor(coeff, x)
+    return linear_scan(coeff, (1.0 - coeff) * x, y0, shard_axis=shard_axis)
+
+
+def dc_block(x: torch.Tensor, r, y0_x, y0_y, shard_axis: int | None = None,
+             halo_impl: str = "rdma"
              ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """DC blocker y[n] = x[n] − x[n−1] + r·y[n−1]; returns (y, (last x,
-    last y)) so the state threads across blocks."""
+    last y)) so the state threads across blocks. With `shard_axis`, x[n−1]
+    at a shard's start comes from the left neighbour (shard 0: y0_x), the
+    IIR part runs across the shards, and the returned state holds every
+    shard's ([*batch, D]: the stream's is the last one)."""
     r = _as_tensor(r, x)
+    if _check_shard_axis(shard_axis, x):
+        x_prev0 = torch.broadcast_to(_as_tensor(y0_x, x),
+                                     x.shape[:-2]).contiguous()
+        first = left_halo(x, 1, head0=x_prev0[..., None], impl=halo_impl)
+        diff = x - torch.cat([first, x[..., :-1]], dim=-1)
+        y = linear_scan(r, diff, y0_y, shard_axis=shard_axis)
+        return y, (x[..., -1], y[..., -1])
     x_prev0 = torch.broadcast_to(_as_tensor(y0_x, x), x[..., 0].shape)
     diff = x - torch.cat([x_prev0[..., None], x[..., :-1]], dim=-1)
     if r.ndim == 0:
@@ -113,12 +189,18 @@ def dc_block(x: torch.Tensor, r, y0_x, y0_y
     return y, (x[..., -1], y[..., -1])
 
 
-def sliding_max(x: torch.Tensor, window: int) -> torch.Tensor:
+def sliding_max(x: torch.Tensor, window: int, shard_axis: int | None = None,
+                halo_impl: str = "rdma") -> torch.Tensor:
     """Causal sliding-window max over `window` samples (inclusive), as if
     x were left-padded with −inf: a log-depth cascade of shifted maxima,
-    exact."""
+    exact. With `shard_axis` the window reaches into the shards on the
+    left through `left_context` (−inf past the stream's start)."""
     if window <= 1:
         return x
+    if _check_shard_axis(shard_axis, x):
+        ctx = left_context(x, window - 1, fill=-torch.inf, impl=halo_impl)
+        return sliding_max(torch.cat([ctx, x], dim=-1),
+                           window)[..., window - 1:]
     y = x
     covered = 1
     while covered < window:

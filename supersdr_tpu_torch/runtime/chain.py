@@ -15,8 +15,9 @@ a 1-D batch of ≥ 128 receivers in AM/USB/LSB/CW/NBFM with an integer
 upsample runs demod → resample as one kernel launch
 (`ops/cuda/chain_tail.chain_tail_am`, `_process_tail_pallas`); anything
 else runs the plain ops below, which is the reference's own XLA path. The
-planar wideband path calls `process_tail_tmajor` with the channelizer's
-raw planes (`chain_tail_fir`, passband fused in).
+wideband time-major tiers call `process_tail_tmajor` with the channelizer's
+raw planes or its time-major planes (`chain_tail_fir`, passband fused in),
+or with a filtered passband (`chain_tail_am`).
 """
 
 from __future__ import annotations
@@ -378,41 +379,68 @@ def _process_tail_pallas(cfg: ChainConfig, params: ChainParams,
 
 def process_tail_tmajor(cfg: ChainConfig, params: ChainParams,
                         state: ChainState, phase: torch.Tensor,
-                        os_carry: cx.CX, *, fir_x3: tuple,
-                        chan_order: torch.Tensor,
+                        os_carry: cx.CX, *, yT: cx.CX | None = None,
+                        fir_x: cx.CX | None = None,
+                        fir_x3: tuple | None = None,
+                        chan_order: torch.Tensor | None = None,
                         audio_dtype: torch.dtype = torch.float32
                         ) -> tuple[ChainState, torch.Tensor, torch.Tensor]:
-    """Time-major fused back half on the channelizer's raw planes.
+    """Time-major fused back half, one kernel launch, on one of three
+    sources (the reference's):
 
-    fir_x3: (raw_r, raw_i) [n1, chunk, n2]; audio and RSSI rows come out
-    in planar channel order, and `chan_order` (row → bin, an index tensor
-    on the planes' device) permutes the bin-ordered ChainState in and
-    out. `os_carry` is the new input history (bin order) for the next
-    chunk. The squelch gates the audio from the in-kernel RSSI. Returns
-    (state, audioT [chunk·L, C], rssi [C, 1])."""
+    fir_x3  (raw_r, raw_i) [n1, chunk, n2], the channelizer's raw planes:
+            the FIR tail filters them in place; audio and RSSI rows come
+            out in planar channel order, and `chan_order` (row → bin, an
+            index tensor on the planes' device) permutes the bin-ordered
+            ChainState in and out;
+    fir_x   CX [chunk, C], the channelizer's time-major bin-ordered
+            planes: the same FIR tail, which reads them as one plane of
+            C columns;
+    yT      CX [chunk, C], an already filtered passband: the non-FIR
+            tail, with its power row.
+
+    `os_carry` is the new input history (bin order) for the next chunk.
+    The squelch gates the audio from the in-kernel RSSI. Returns (state,
+    audioT [chunk·L, C], rssi [C, 1])."""
     if cfg.chunk != cfg.os_block:
         raise ValueError("time-major tail needs os_block == chunk")
-    if params.W_tailpass is None:
-        raise ValueError("params.W_tailpass missing (passband_impl must "
-                         "be 'matmul' with a fusable FIR block)")
-    raw_r, raw_i = fir_x3
-    order = chan_order
-    inv = torch.argsort(order)
+    if (yT is not None) + (fir_x is not None) + (fir_x3 is not None) != 1:
+        raise ValueError("give exactly one of yT, fir_x and fir_x3")
+    order = inv = None
+    if fir_x3 is not None:
+        if chan_order is None:
+            raise ValueError("fir_x3 needs chan_order")
+        order = chan_order
+        inv = torch.argsort(order)
     PER = cfg.interp_plan.per
     tile = _tail_tile(cfg.chunk, cfg.n_taps)
-    B, n_prev = fir_matmul.tail_fir_block(cfg.chunk, cfg.n_taps, tile)
-    rb = 32 if tile % 32 == 0 else (16 if tile % 16 == 0 else 0)
-    audioT, st2 = chain_tail.chain_tail_fir(
-        raw_r, raw_i,
-        state.os_carry.re[order].T.contiguous(),
-        state.os_carry.im[order].T.contiguous(),
-        _state_rows(cfg, state, order), _tail_params_vec(params, cfg),
-        params.W_tailpass, params.P_interp, n_taps=cfg.n_taps, B=B,
-        n_prev=n_prev, tile_t=tile, demod=_tail_demod(cfg),
-        fir_bf16=cfg.passband_precision == "default",
-        rs_bf16=(cfg.resample_impl == "matmul" and rb != 0
-                 and cfg.resample_precision == "default"),
-        hang_window=_tail_hang_window(cfg))
+    hang = _tail_hang_window(cfg)
+    if yT is not None:
+        audioT, st2 = chain_tail.chain_tail_am(
+            yT.re, yT.im, _state_rows(cfg, state),
+            _tail_params_vec(params, cfg), params.P_interp, tile_t=tile,
+            demod=_tail_demod(cfg), accum_pow=True, hang_window=hang,
+            audio_layout="time")
+    else:
+        if params.W_tailpass is None:
+            raise ValueError("params.W_tailpass missing (passband_impl "
+                             "must be 'matmul' with a fusable FIR block)")
+        raw_r, raw_i = fir_x3 if fir_x3 is not None \
+            else (fir_x.re[None], fir_x.im[None])
+        hist_r, hist_i = state.os_carry.re, state.os_carry.im
+        if order is not None:
+            hist_r, hist_i = hist_r[order], hist_i[order]
+        B, n_prev = fir_matmul.tail_fir_block(cfg.chunk, cfg.n_taps, tile)
+        rb = 32 if tile % 32 == 0 else (16 if tile % 16 == 0 else 0)
+        audioT, st2 = chain_tail.chain_tail_fir(
+            raw_r, raw_i, hist_r.T.contiguous(), hist_i.T.contiguous(),
+            _state_rows(cfg, state, order), _tail_params_vec(params, cfg),
+            params.W_tailpass, params.P_interp, n_taps=cfg.n_taps, B=B,
+            n_prev=n_prev, tile_t=tile, demod=_tail_demod(cfg),
+            fir_bf16=cfg.passband_precision == "default",
+            rs_bf16=(cfg.resample_impl == "matmul" and rb != 0
+                     and cfg.resample_precision == "default"),
+            hang_window=hang)
     if audio_dtype != torch.float32:
         audioT = audioT.to(audio_dtype)
     pw = st2[4 + PER - 1] / cfg.chunk
@@ -421,11 +449,12 @@ def process_tail_tmajor(cfg: ChainConfig, params: ChainParams,
         smeter.RSSI_FLOOR_DB)[:, None]
     sq_state = state.squelch
     if cfg.squelch_enabled:
-        sq_planar = squelch_ops.SquelchState(*(v[order]
-                                               for v in state.squelch))
-        sq2, audioT = squelch_ops.apply_squelch_tmajor(
-            _squelch_tail(params, cfg), sq_planar, audioT, rssi[:, 0])
-        sq_state = squelch_ops.SquelchState(*(v[inv] for v in sq2))
+        sq_in = state.squelch if order is None else \
+            squelch_ops.SquelchState(*(v[order] for v in state.squelch))
+        sq_state, audioT = squelch_ops.apply_squelch_tmajor(
+            _squelch_tail(params, cfg), sq_in, audioT, rssi[:, 0])
+        if inv is not None:
+            sq_state = squelch_ops.SquelchState(*(v[inv] for v in sq_state))
     dstate, astate, icarry = _unpack_rows(cfg, state, st2, inv)
     new_state = ChainState(phase=phase, os_carry=os_carry, demod=dstate,
                            agc=astate, interp_carry=icarry,

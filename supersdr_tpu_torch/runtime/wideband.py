@@ -7,6 +7,13 @@ the reference's own predicates:
               [n1, frames, n2] planes feed the FIR-fused chain tail
               directly; audio comes back time-major [frames·L, n_chan]
               with rows in planar channel order;
+  time-major  (`time_major`, `_tmajor_fused_ok` but not `_planar_active`:
+              a frame count that `chan_tile_t` does not divide, as the
+              CLI's file chunks, or a passband too short for the in-tail
+              FIR block): the fused channelizer writes time-major
+              bin-ordered planes [frames, n_chan]; the FIR tail filters
+              them, or the time-major Toeplitz product does and the
+              non-FIR tail follows; audio [frames·L, n_chan] in bin order;
   chan-major  (`time_major=False`, the default): `channelize_dispatch`
               (the fold kernel with `pallas_fold`, the fused channelizer
               permuted to bin order, or the plain fold + FFT) → the
@@ -18,9 +25,8 @@ the reference's own predicates:
               pipeline plus one transpose.
 
 `audio_channel_order` maps rows to PFB bins (identity off the planar
-tier) and `channel_freqs` is row-aligned. The time-major tier that the
-reference runs when `_tmajor_fused_ok` holds but `_planar_active` does
-not raises `NotImplementedError` (ROADMAP queue 1 #3b).
+tier) and `channel_freqs` is row-aligned. The state is the same on every
+tier, so a stream may change tier between chunks.
 """
 
 from __future__ import annotations
@@ -367,16 +373,45 @@ def _process_planar(cfg: WidebandConfig, params: WidebandParams,
             chain.ChainOutput(audio=audioT, rssi=rssi, baseband=None))
 
 
+def _process_tmajor_fused(cfg: WidebandConfig, params: WidebandParams,
+                          state: WidebandState, iq
+                          ) -> tuple[WidebandState, chain.ChainOutput]:
+    """The time-major tier off the planar coupling: the channelizer kernel
+    writes bin-ordered planes [nf, M] (an int16 pair goes to it as it is
+    and is dequantized in the kernel); with an in-tail FIR block the FIR
+    tail reads them (no baseband output), else the time-major Toeplitz
+    passband runs alone and the non-FIR tail takes its yT."""
+    ccfg = cfg.chain_cfg
+    pfb_carry, chansT = channelize_fused.channelize_fused_c(
+        pfb_plan(cfg), params.W_pfb, state.pfb_carry, iq,
+        factors=channelizer._pick_factors(cfg.n_chan),
+        bf16_mxu=cfg.chan_precision == "default", out_layout="time")
+    chansT = cx.CX(*chansT)
+    ov = ccfg.n_taps - 1
+    os_carry = cx.CX(chansT.re[-ov:].T.contiguous(),
+                     chansT.im[-ov:].T.contiguous())
+    kw = dict(audio_dtype=_AUDIO_DTYPES[cfg.audio_dtype])
+    if params.chain.W_tailpass is not None:
+        yT = None
+        kw["fir_x"] = chansT
+    else:
+        carry_T = cx.CX(state.chain.os_carry.re.T, state.chain.os_carry.im.T)
+        _, yT = fir_matmul.fir_matmul_stream_tmajor_c(
+            ccfg.fir_plan, params.chain.W_pass, carry_T, chansT)
+        kw["yT"] = yT
+    cstate, audioT, rssi = chain.process_tail_tmajor(
+        ccfg, params.chain, state.chain, state.chain.phase, os_carry, **kw)
+    return (WidebandState(pfb_carry=pfb_carry, chain=cstate),
+            chain.ChainOutput(audio=audioT, rssi=rssi, baseband=yT))
+
+
 def _process_tmajor(cfg: WidebandConfig, params: WidebandParams,
                     state: WidebandState, iq
                     ) -> tuple[WidebandState, chain.ChainOutput]:
     if _planar_active(cfg):
         return _process_planar(cfg, params, state, iq)
     if _tmajor_fused_ok(cfg):
-        raise NotImplementedError(
-            "the time-major fused tier off the planar coupling (chunks "
-            "that chan_tile_t does not divide, or no in-tail FIR block) is "
-            "not ported yet (ROADMAP queue 1 #3b)")
+        return _process_tmajor_fused(cfg, params, state, iq)
     # fallback: the chan-major pipeline plus one transpose
     st, out = _process_chan_major(cfg, params, state, iq)
     audioT = out.audio.T.to(_AUDIO_DTYPES[cfg.audio_dtype]).contiguous()

@@ -25,7 +25,12 @@ REPO = Path(__file__).resolve().parents[1]
     "supersdr_tpu_torch.ops.cuda.channelize_fused",
     "supersdr_tpu_torch.ops.cuda.pfb_fold",
     "supersdr_tpu_torch.runtime.chain", "supersdr_tpu_torch.ops.scans",
-    "supersdr_tpu_torch.ops.squelch", "supersdr_tpu_torch.ops.resample"])
+    "supersdr_tpu_torch.ops.squelch", "supersdr_tpu_torch.ops.resample",
+    "supersdr_tpu_torch.ops.cuda.halo", "supersdr_tpu_torch.parallel",
+    "supersdr_tpu_torch.parallel.mesh",
+    "supersdr_tpu_torch.parallel.collectives",
+    "supersdr_tpu_torch.parallel.sharded_chain",
+    "supersdr_tpu_torch.parallel.comm_model"])
 def test_imports_without_jax(module):
     """Nothing of JAX, and nothing of the JAX package either."""
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
@@ -79,7 +84,7 @@ def test_build_targets_sm90a_into_ignored_dir():
     assert rel in ignored
     assert {p.name for p in _build.sources()} == {"channelize_fused.cu",
                                                  "chain_tail.cu",
-                                                 "pfb_fold.cu"}
+                                                 "pfb_fold.cu", "halo.cu"}
     # the source hash names the library, so an edited source rebuilds
     assert _build.source_hash() in lib.name
 
@@ -98,6 +103,18 @@ def test_c_signatures_cover_every_entry_point():
     assert decls.keys() == _build.SIGNATURES.keys()
     for name, n in decls.items():
         assert len(_build.SIGNATURES[name]) == n, name
+
+
+def test_package_and_smoke_script_name_no_jax_module():
+    """No source of the port, nor the smoke script, imports JAX or the JAX
+    package, not even inside a function."""
+    import re
+    pat = re.compile(r"^\s*(import|from)\s+(jax|supersdr_tpu)(\.|\s|$)", re.M)
+    files = sorted((REPO / "supersdr_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 25
+    for f in files:
+        assert not pat.search(f.read_text()), f
 
 
 def test_chain_state_matches_tail_rows():

@@ -220,15 +220,27 @@ def test_make_params_matches_params_from_jax(mode):
     dict(n_taps=33, **twb.PROFILES["fast"]),
     dict(chan_impl="mxu2pallas")])
 def test_outside_the_slice_raises(extra):
-    """What the port still does not run raises, naming the ROADMAP item:
-    the time-major fused tier off the planar coupling (a chunk that
-    chan_tile_t does not divide; a passband too short for the in-tail FIR
-    block) and the reference's superseded channelizer variants."""
+    """What the port does not run raises, naming the ROADMAP item: the
+    reference's superseded channelizer variants. The time-major fused tier
+    off the planar coupling (a chunk that chan_tile_t does not divide; a
+    passband too short for the in-tail FIR block) raised here until it was
+    ported: now it runs, in bin order (tests/test_torch_wideband_tmajor.py
+    holds it against the reference)."""
     cfg = twb.WidebandConfig(**{**BASE, **extra})
     assert not twb._planar_active(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twb.process(cfg, twb.make_params(cfg), twb.init_state(cfg),
-                    np.zeros(cfg.chunk_in, np.complex64))
+    args = (cfg, twb.make_params(cfg), twb.init_state(cfg),
+            np.zeros(cfg.chunk_in, np.complex64))
+    if extra.get("chan_impl") == "mxu2pallas":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            twb.process(*args)
+        return
+    assert twb._tmajor_fused_ok(cfg)
+    _, out = twb.process(*args)
+    assert out.audio.shape == (cfg.chunk_per_chan * 4, cfg.n_chan)
+    assert bool(torch.isfinite(out.audio).all())
+    assert (out.baseband is None) == (extra.get("n_taps") != 33)
+    np.testing.assert_array_equal(twb.audio_channel_order(cfg),
+                                  np.arange(cfg.n_chan))
 
 
 @pytest.mark.parametrize("kw", [
