@@ -7,16 +7,22 @@ Run from the repository root with no arguments:
 Phases, each printed as it runs; any failure exits non-zero:
   1. card identity (torch / CUDA versions, nvidia-smi name and power limit);
   2. build the five kernels from supersdr_tpu_torch/csrc with nvcc (one
-     process a source, in parallel);
+     process a source, in parallel): the seconds each source took, every
+     kernel variant's registers, stack and spills, and the tensor-core and
+     asynchronous-copy instructions in the built library; and the port's
+     default device (no `device` given: the current card);
   3. each kernel's wrapper against its plain PyTorch version on the card,
      at the MID shape (2560 channels, 512 frames a chunk): the channelizer
-     on both tiers with float32 and int16 input, the FIR tail on AM (both
-     tiers), USB, NBFM and with AGC hang, the fold, and the non-FIR tail on
-     AM with hang off and on (500 and 40 ms), USB, NBFM (FM carriers,
-     manual AGC), with the power row and on time-major planes; plus ragged
-     last tiles (13 frames for the channelizer and the fold, 640 for both
-     tails); the channelizer's time-major store (float32 and int16 input)
-     and the FIR tail's 2-D source; and the
+     on both tiers with float32 and int16 input (also at 2 × 256, 12 × 256
+     and 5 × 512 channels, 40 frames), the FIR tail on AM, USB
+     (complex taps) and NBFM on both tiers and with AGC hang, the fold, and
+     the non-FIR tail on AM with hang off and on (500 and 40 ms), USB, NBFM
+     (FM carriers, manual AGC), with the power row and on time-major
+     planes; peak segments shorter than, as long as and longer than the
+     tails' 256-sample scan piece; plus ragged last tiles (13 frames for
+     the channelizer and the fold, 640 for both tails); the channelizer's
+     time-major store (float32 and int16 input) and the FIR tail's 2-D
+     source; and the
      halo kernel, bit for bit, over float32, int16 and complex64, 1 to 256
      samples, 1 to 8 shards, 1 to 2560 rows, strided sources, a −inf fill,
      two hops and a head for shard 0;
@@ -27,7 +33,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      `pallas_fold=True`, the fft passband and the tail kernel): one fold
      and one non-FIR tail launch a chunk, audio [2560, 64512]; then ms a
      chunk, input Msamples/s, each kernel against and beside its plain
-     version at HEADLINE, and where CHANMAJOR's device time goes;
+     version at HEADLINE (the channelizer also on int16 chunks, both tails
+     also on USB, NBFM and AM with the hang), and where the planar and the
+     CHANMAJOR device time goes, with the card's idle share;
   5. row alignment on both main paths: two AM carriers come out as the two
      loudest RSSI rows;
   6. AGC hang and squelch on the planar HEADLINE path (launch counts
@@ -62,6 +70,9 @@ when no CUDA device is present. It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -78,10 +89,12 @@ CHANMAJOR = dict(time_major=False, pallas_fold=True, tail_impl="pallas",
                  passband_impl="fft")
 
 # kernel vs plain on the card. Both compute in float32 with other
-# summation orders (the tails' plain versions also scan in tiles where the
-# kernels are sequential; the DC pole and the AGC's exp amplify that); the
-# bf16 tier's raw planes are rounded to bf16 on output, where an
-# order-level difference can flip one bf16 ulp. The fold sums 8 float32
+# summation orders (the tails scan in other pieces than their plain
+# versions; the DC pole and the AGC's exp amplify that); the quality
+# channelizer's and FIR's float32 operands go through the tensor cores as
+# two bf16 pieces each (16 significant bits, ~108 dB); the bf16 tier's raw
+# planes are rounded to bf16 on output, where an order-level difference
+# can flip one bf16 ulp. The fold sums 8 float32
 # products in the plain version's order. The chain and the chan-major
 # tier on the card against the same call on the CPU: float32 with other
 # FFT and summation orders, the tail bound again.
@@ -131,6 +144,65 @@ def _nvidia_smi() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def _kernel_name(mangled: str) -> str:
+    """kernel<template arguments> out of a mangled entry name (the name is
+    what ends in `_kernel` and is preceded by its own length)."""
+    end = mangled.find("_kernel") + len("_kernel")
+    for n in range(len("_kernel"), 64):
+        start = end - n
+        if start > 0 and mangled[:start].endswith(str(n)) \
+                and re.fullmatch(r"[a-z_][a-z0-9_]*", mangled[start:end]):
+            m = re.match(r"I((?:L[a-z]\d+E|[a-z])+)E", mangled[end:])
+            args = re.findall(r"L[a-z](\d+)E|([a-z])", m.group(1)) if m else []
+            return f"{mangled[start:end]}<{','.join(a or b for a, b in args)}>"
+    return mangled
+
+
+def _print_build(log: str, lib_path) -> None:
+    """What the compiler said of every kernel variant (registers a thread,
+    stack and spill bytes), the seconds each source took, and from the
+    built library's SASS the tensor-core (HMMA), asynchronous-copy (LDGSTS)
+    and ldmatrix (LDSM) instructions by kernel."""
+    name = None
+    stack = ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = _kernel_name(line.split("'")[1])
+        elif "bytes stack frame" in line:
+            stack = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            print(f"  ptxas {name}: {regs} registers; {stack}", flush=True)
+            name = None
+        elif line.startswith("nvcc "):
+            print(f"  {line}", flush=True)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        print("  sass: cuobjdump not found", flush=True)
+        return
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        print(f"  sass: cuobjdump failed: {out.stderr.strip()[:200]}",
+              flush=True)
+        return
+    counts: dict = {}
+    fn = None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = _kernel_name(line.split(":", 1)[1].strip()).split("<")[0]
+            counts.setdefault(fn, {"variants": 0, "HMMA": 0, "LDGSTS": 0,
+                                   "LDSM": 0})["variants"] += 1
+        elif fn:
+            for op in ("HMMA", "LDGSTS", "LDSM"):
+                if op in line:
+                    counts[fn][op] += 1
+    for fn, c in sorted(counts.items()):
+        print(f"  sass {fn}: {c['variants']} variants, HMMA {c['HMMA']}, "
+              f"LDGSTS {c['LDGSTS']}, LDSM {c['LDSM']} instructions in all",
+              flush=True)
 
 
 def _sync(device) -> None:
@@ -234,11 +306,14 @@ def _chan_case(cfg, params, gen, *, i16: bool, device,
     return kernel, plain
 
 
-def _tail_case(cfg, params, gen, *, device, raw=None, time2d=False):
-    """(wrapper call, plain call) of the FIR tail on raw planes (random
-    ones unless given), random history and a fresh state; the config's
+def _tail_case(cfg, params, gen, *, device, raw=None, time2d=False,
+               tile: int | None = None):
+    """(wrapper call, plain call) of the FIR tail on raw planes (unless
+    given: noise, or for NBFM one FM carrier a channel), random history
+    and a fresh state; the config's
     AGC hang window when it has one. time2d: the 2-D time-major source,
-    float32 planes [nf, C] read as one plane of C columns."""
+    float32 planes [nf, C] read as one plane of C columns. tile: the
+    tail tile (the peak segment) in place of the config's."""
     from supersdr_tpu_torch.ops import fir_matmul
     from supersdr_tpu_torch.ops.cuda import chain_tail as ct
     from supersdr_tpu_torch.runtime import chain
@@ -249,8 +324,15 @@ def _tail_case(cfg, params, gen, *, device, raw=None, time2d=False):
     PER = ccfg.interp_plan.per
     fast = cfg.passband_precision == "default"
     if raw is None:
-        raw = [torch.randn(n1, nf, n2, generator=gen, device=device) * 0.05
-               for _ in range(2)]
+        if ccfg.mode == "NBFM":
+            # FM carriers: on noise the discriminator's angle lies next to
+            # its ±π cut in a few samples of a million, where rounding
+            # decides the sign
+            z = _fm_carriers(C, nf, gen, device).reshape(n1, n2, nf)
+            raw = [p.permute(0, 2, 1).contiguous() for p in (z.real, z.imag)]
+        else:
+            raw = [torch.randn(n1, nf, n2, generator=gen, device=device)
+                   * 0.05 for _ in range(2)]
         if fast and not time2d:
             raw = [r.to(torch.bfloat16) for r in raw]
     elif time2d:
@@ -259,7 +341,7 @@ def _tail_case(cfg, params, gen, *, device, raw=None, time2d=False):
             for _ in range(2)]
     st = torch.zeros(4 + PER, C, device=device)
     st[2] = -120.0
-    tile = chain._tail_tile(ccfg.chunk, ccfg.n_taps)
+    tile = tile or chain._tail_tile(ccfg.chunk, ccfg.n_taps)
     B, n_prev = fir_matmul.tail_fir_block(ccfg.chunk, ccfg.n_taps, tile)
     args = (*raw, *head, st, chain._tail_params_vec(params.chain, ccfg),
             params.chain.W_tailpass, params.chain.P_interp)
@@ -307,13 +389,15 @@ def _fm_carriers(C: int, nf: int, gen, device) -> torch.Tensor:
 
 def _am_case(C: int, nf: int, gen, *, device, mode: str = "AM",
              agc: dict | None = None, hang_ms: float | None = None,
-             accum: bool = False, y=None, yT=None, n_taps: int = 257):
+             accum: bool = False, y=None, yT=None, n_taps: int = 257,
+             tile: int | None = None):
     """(wrapper call, plain call) of the non-FIR tail on a fresh state.
     On y [C, nf] (chain-major complex, random noise or FM carriers unless
     given) read through strided views and written chain-major, as the
     chain's tail tier runs it. With yT, a (re, im) pair of contiguous
     time-major planes [nf, C]: read as they lie and written time-major
-    with the power row, as the time-major wideband tier runs it."""
+    with the power row, as the time-major wideband tier runs it. tile: the
+    tail tile (the peak segment) in place of the chunk's."""
     from supersdr_tpu_torch.ops.cuda import chain_tail as ct
     from supersdr_tpu_torch.runtime import chain
     ccfg = chain.ChainConfig(mode=mode, chunk=nf, os_block=nf,
@@ -329,7 +413,8 @@ def _am_case(C: int, nf: int, gen, *, device, mode: str = "AM",
     planes = (y.real.T, y.imag.T) if yT is None else tuple(yT)
     args = (*planes, st, chain._tail_params_vec(params, ccfg),
             params.P_interp)
-    kw = dict(tile_t=chain._tail_tile(nf, n_taps), demod=chain._tail_demod(ccfg),
+    kw = dict(tile_t=tile or chain._tail_tile(nf, n_taps),
+              demod=chain._tail_demod(ccfg),
               accum_pow=accum or yT is not None,
               hang_window=chain._tail_hang_window(ccfg),
               audio_layout="chan" if yT is None else "time")
@@ -355,8 +440,11 @@ def _compare(name: str, label: str, kernel, plain, tol: float, device,
                              f"version")
 
 
+# (profile, mode, AGC settings); USB has complex taps
 TAIL_CASES = (("fast", "AM", None), ("quality", "AM", None),
-              ("quality", "USB", None), ("quality", "NBFM", dict(on=False)))
+              ("fast", "USB", None), ("quality", "USB", None),
+              ("fast", "NBFM", dict(on=False)),
+              ("quality", "NBFM", dict(on=False)))
 
 
 def phase_kernels(shape: dict, device, err: dict, seed: int = 7) -> None:
@@ -369,7 +457,10 @@ def phase_kernels(shape: dict, device, err: dict, seed: int = 7) -> None:
     AGC, with the power row, on 640 frames, and on time-major planes with
     time-major audio (AM, USB with hang). Also the channelizer's time-major
     store (on the config's frames and on 24, float32 and int16 input) and
-    the FIR tail's 2-D time-major source, both tiers."""
+    the FIR tail's 2-D time-major source, both tiers; the channelizer on
+    other factorings of the channel count; USB (complex taps)
+    and NBFM on both tiers' FIR; and peak segments shorter than, as long
+    as and longer than the tails' 256-sample scan piece, with the hang."""
     from supersdr_tpu_torch.runtime import wideband as wb
     gen = torch.Generator(device=device).manual_seed(seed)
     for prof in ("fast", "quality"):
@@ -389,18 +480,43 @@ def phase_kernels(shape: dict, device, err: dict, seed: int = 7) -> None:
                  f"nf={cfg.chunk_per_chan}",
                  *_tail_case(cfg, params, gen, device=device, time2d=True),
                  TOL_SNR_DB["tail"], device, err)
+        # other factorings of the channel count: 2 × 256 (one row tile),
+        # 12 × 256 (stage-A outputs and row tiles in two passes, 4-frame
+        # blocks for the time store), 5 × 512 (two column blocks)
+        for n_chan, factors in ((512, None), (3072, None), (2560, (5, 512))):
+            fcfg = wb.WidebandConfig(**dict(
+                shape, n_chan=n_chan, fs_in=n_chan * 12_000,
+                chunk_in=n_chan * 40, chan_factors=factors),
+                **wb.PROFILES[prof])
+            fparams = wb.make_params(fcfg, device=device)
+            for i16, layout in ((False, "raw3"), (True, "time")):
+                n1, n2 = wb._factors_for(fcfg)
+                _compare("channelize_fused",
+                         f"{prof} {'i16' if i16 else 'f32'} {layout} "
+                         f"{n1} x {n2} channels nf=40",
+                         *_chan_case(fcfg, fparams, gen, i16=i16,
+                                     device=device, layout=layout),
+                         TOL_SNR_DB["chan_" + prof], device, err)
     ragged = dict(shape, chunk_in=shape["n_chan"] * 640)
     cases = [(shape, c) for c in TAIL_CASES] + [
         (ragged, ("fast", "AM", None)), (ragged, ("quality", "USB", None))]
     cases.append((shape, ("quality", "AM hang 500 ms", dict(hang=True))))
+    # peak segments as long as the kernel's 256-sample scan piece and, on a
+    # 129-tap passband, shorter (the configs' own are longer)
+    short = dict(shape, n_taps=129)
+    cases += [(shape, ("fast", "AM hang 500 ms seg 256", dict(hang=True))),
+              (shape, ("quality", "USB seg 256", None)),
+              (short, ("fast", "USB hang 500 ms seg 128", dict(hang=True))),
+              (short, ("quality", "AM seg 128", None))]
     for shp, (prof, mode, agc) in cases:
         hang = "hang" in mode
+        tile = int(mode.split()[-1]) if "seg" in mode else None
         cfg = wb.WidebandConfig(**dict(shp, mode=mode.split()[0],
                                        hang_enabled=hang),
                                 **wb.PROFILES[prof])
         params = wb.make_params(cfg, device=device, agc_kwargs=agc)
         _compare("chain_tail", f"{prof} {mode} nf={cfg.chunk_per_chan}",
-                 *_tail_case(cfg, params, gen, device=device),
+                 *_tail_case(cfg, params, gen, device=device, tile=tile),
                  TOL_SNR_DB["tail"], device, err)
     cfg = wb.WidebandConfig(**shape, **CHANMAJOR)
     params = wb.make_params(cfg, device=device)
@@ -416,18 +532,30 @@ def phase_kernels(shape: dict, device, err: dict, seed: int = 7) -> None:
                                                agc=dict(on=False))),
                       ("AM power row", dict(accum=True)),
                       ("USB hang 40 ms", dict(mode="USB", hang_ms=40.0,
-                                              nf=640))):
+                                              nf=640)),
+                      ("AM hang 40 ms seg 64", dict(hang_ms=40.0, tile=64)),
+                      ("USB seg 64", dict(mode="USB", tile=64)),
+                      ("AM hang 500 ms seg 256", dict(hang_ms=500.0,
+                                                      tile=256)),
+                      ("NBFM manual AGC seg 128", dict(
+                          mode="NBFM", agc=dict(on=False), tile=128,
+                          nf=640))):
         kw = dict(kw)
         n = kw.pop("nf", nf)
         _compare("chain_tail_am", f"{label} nf={n}",
                  *_am_case(C, n, gen, device=device, **kw),
                  TOL_SNR_DB["tail"], device, err)
-    for label, kw in (("AM", {}), ("USB hang 40 ms",
-                                   dict(mode="USB", hang_ms=40.0))):
-        yT = [torch.randn(nf, C, generator=gen, device=device) * 0.05
+    # time-major audio launches clusters of four blocks: also a channel
+    # count that leaves the last block ragged and the last cluster short
+    for label, kw, n_ch in (("AM", {}, C),
+                            ("USB hang 40 ms", dict(mode="USB", hang_ms=40.0),
+                             C),
+                            ("AM", {}, C - 12)):
+        yT = [torch.randn(nf, n_ch, generator=gen, device=device) * 0.05
               for _ in range(2)]
-        _compare("chain_tail_am", f"{label} time-major nf={nf}",
-                 *_am_case(C, nf, gen, device=device, yT=yT, **kw),
+        _compare("chain_tail_am",
+                 f"{label} time-major nf={nf}, {n_ch} channels",
+                 *_am_case(n_ch, nf, gen, device=device, yT=yT, **kw),
                  TOL_SNR_DB["tail"], device, err)
 
 
@@ -523,6 +651,9 @@ def phase_timing(runs: dict, err: dict, iters: int = 5,
             print(f"time main path {prof} {kind}: {ms:.3f} ms/chunk, "
                   f"{rate:.1f} Msamples/s input", flush=True)
             times[f"main_{prof}_{kind}"] = ms
+            if kind == "f32":
+                device_share(f"planar {prof} f32 ({len(chunks)} chunks a "
+                             f"call)", step, calls=3, rows=6)
         gen = torch.Generator(device=dev).manual_seed(seed)
         label = f"{prof} nf={cfg.chunk_per_chan}"
         kernel, plain = _chan_case(cfg, params, gen, i16=False, device=dev)
@@ -531,15 +662,39 @@ def phase_timing(runs: dict, err: dict, iters: int = 5,
         times[f"channelize_fused_{prof}"] = (cuda_ms(kernel, iters),
                                              cuda_ms(plain, 2))
         raw = kernel()
+        k16, p16 = _chan_case(cfg, params, gen, i16=True, device=dev)
+        _compare("channelize_fused", f"{label} i16", k16, p16,
+                 TOL_SNR_DB["chan_" + prof], dev, err)
+        times[f"channelize_fused_i16_{prof}"] = (cuda_ms(k16, iters),
+                                                 cuda_ms(p16, 2))
+        del k16, p16
         kernel, plain = _tail_case(cfg, params, gen, device=dev, raw=raw)
         _compare("chain_tail", f"{label} AM", kernel, plain,
                  TOL_SNR_DB["tail"], dev, err)
         times[f"chain_tail_{prof}"] = (cuda_ms(kernel, iters),
                                        cuda_ms(plain, 2))
-        for name in ("channelize_fused", "chain_tail"):
+        for name in ("channelize_fused", "channelize_fused_i16",
+                     "chain_tail"):
             k_ms, p_ms = times[f"{name}_{prof}"]
             print(f"time {name} {prof}: kernel {k_ms:.3f} ms, "
                   f"plain {p_ms:.3f} ms", flush=True)
+        # the other demodulators through the scanned body at this length,
+        # USB on complex taps, and AM with the hang
+        for mode, agc, hang in (("USB", None, False),
+                                ("NBFM", dict(on=False), False),
+                                ("AM", dict(hang=True), True)):
+            mcfg = wb.WidebandConfig(**dict(
+                HEADLINE, chunk_in=cfg.chunk_in, mode=mode,
+                hang_enabled=hang), **wb.PROFILES[prof])
+            mparams = wb.make_params(mcfg, device=dev, agc_kwargs=agc)
+            kernel, plain = _tail_case(mcfg, mparams, gen, device=dev,
+                                       raw=None if mode == "NBFM" else raw)
+            what = f"{mode} hang 500 ms" if hang else mode
+            _compare("chain_tail", f"{label} {what}", kernel, plain,
+                     TOL_SNR_DB["tail"], dev, err)
+            print(f"time chain_tail {prof} {what}: kernel "
+                  f"{cuda_ms(kernel, iters):.3f} ms", flush=True)
+        del raw, kernel, plain
     return times
 
 
@@ -610,17 +765,22 @@ def phase_chanmajor_timing(run: dict, err: dict, iters: int = 5,
     for name in ("pfb_fold", "chain_tail_am"):
         print(f"time {name}: kernel {times[name][0]:.3f} ms, "
               f"plain {times[name][1]:.3f} ms", flush=True)
-    from torch.profiler import ProfilerActivity, profile
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            step()
-        torch.cuda.synchronize()
-    print("profile chanmajor (2 calls, 4 chunks):", flush=True)
-    print(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                    row_limit=12), flush=True)
+    # the other demodulators through the scanned body at this length (NBFM
+    # on FM carriers with manual AGC), and AM with the hang
+    for label, kw in (("USB", dict(mode="USB", y=y)),
+                      ("NBFM manual AGC", dict(mode="NBFM",
+                                               agc=dict(on=False))),
+                      ("AM hang 500 ms", dict(hang_ms=500.0, y=y)),
+                      ("AM hang 40 ms", dict(hang_ms=40.0, y=y))):
+        kernel, plain = _am_case(cfg.n_chan, cfg.chunk_per_chan, gen,
+                                 device=dev, **kw)
+        _compare("chain_tail_am", f"{label} nf={cfg.chunk_per_chan}", kernel,
+                 plain, TOL_SNR_DB["tail"], dev, err)
+        print(f"time chain_tail_am {label}: kernel "
+              f"{cuda_ms(kernel, iters):.3f} ms", flush=True)
+    del y, out, kernel, plain
+    device_share(f"chanmajor f32 ({len(chunks)} chunks a call)", step,
+                 calls=3, rows=12)
     return times
 
 
@@ -746,7 +906,8 @@ def phase_chain(device, seed: int = 6) -> None:
         x = am_iq((3 * chunk + 777,), rate)
         got = chain.run_offline(cfg, chain.make_params(cfg, device=device),
                                 x)[1]
-        ref = chain.run_offline(cfg, chain.make_params(cfg), x)[1]
+        ref = chain.run_offline(cfg, chain.make_params(cfg, device=cpu),
+                                x)[1]
         _close_to_cpu(f"chain.run_offline {rate} Hz", got, ref, tol)
     cfg = wb.WidebandConfig(**MID, chan_impl="mxu2fused",
                             passband_impl="matmul", tail_impl="pallas")
@@ -1076,6 +1237,13 @@ def phase_tmajor(device, err: dict, planar_ms: dict, iters: int = 5,
                  TOL_SNR_DB["chan_" + prof], device, err)
         times[f"channelize_fused_time_{prof}"] = (cuda_ms(kernel, iters),
                                                   cuda_ms(plain, 2))
+        k16, p16 = _chan_case(cfg, params, gen, i16=True, device=device,
+                              layout="time")
+        _compare("channelize_fused", f"{label} i16 time", k16, p16,
+                 TOL_SNR_DB["chan_" + prof], device, err)
+        print(f"time channelize_fused_time {prof} i16: kernel "
+              f"{cuda_ms(k16, iters):.3f} ms", flush=True)
+        del k16, p16
         kernel, plain = _tail_case(cfg, params, gen, device=device,
                                    raw=kernel(), time2d=True)
         _compare("chain_tail", f"{label} AM 2-D source", kernel, plain,
@@ -1196,12 +1364,19 @@ def main() -> int:
     print(f"card: torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}; nvidia-smi: {smi}", flush=True)
     t0 = time.perf_counter()
-    _, log = _build.build()
+    lib_path, log = _build.build()
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas", line.strip(), flush=True)
+    _print_build(log, lib_path)
+    # with no device given the port's constructors use the current card
+    from supersdr_tpu_torch.runtime import wideband as wb
+    small = wb.WidebandConfig(**dict(MID, fs_in=256 * 12_000, n_chan=256,
+                                     chunk_in=256 * 64),
+                              **wb.PROFILES["fast"])
+    here = torch.device("cuda", torch.cuda.current_device())
+    if wb.make_params(small).W_pfb.device != here \
+            or wb.init_state(small).pfb_carry.re.device != here:
+        raise AssertionError("the default device is not the current card")
     err: dict = {}
     phase_kernels(MID, dev, err)
     phase_halo(dev, err)

@@ -16,6 +16,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import time
 from functools import lru_cache
 from pathlib import Path
 
@@ -35,7 +37,7 @@ _L = ctypes.c_long
 # c_void_p, every stride as c_long, so none is cut to 32 bits); each returns
 # a cudaError_t or a plain int.
 SIGNATURES = {
-    "channelize_fused_tile": [_I, _I],
+    "channelize_fused_tile": [_I, _I, _I, _I],
     "channelize_fused_raw3": [_P, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P,
                               _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "chain_tail_channels_per_block": [],
@@ -83,22 +85,42 @@ def compile_command(src: Path, obj: Path) -> list[str]:
 
 
 def link_command(objs: list[Path], out: Path) -> list[str]:
-    return [nvcc(), "-gencode", GENCODE, "-shared", "-o", str(out),
-            *map(str, objs)]
+    return [nvcc(), "-gencode", GENCODE, "-shared", *map(str, objs), "-o",
+            str(out)]
 
 
 def _run_all(cmds: list[list[str]]) -> str:
     """Run the commands in parallel; raise if any fails. Returns their
-    output."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
+    output, each followed by a line `nvcc <last argument>: <seconds> s`."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        logs = [open(os.path.join(tmp, f"{i}.log"), "w+")
+                for i in range(len(cmds))]
+        try:
+            procs = [subprocess.Popen(c, stdout=f, stderr=subprocess.STDOUT,
+                                      text=True)
+                     for c, f in zip(cmds, logs)]
+            took = [0.0] * len(procs)
+            left = set(range(len(procs)))
+            while left:
+                for i in sorted(left):
+                    if procs[i].poll() is not None:
+                        took[i] = time.perf_counter() - t0
+                        left.discard(i)
+                time.sleep(0.05)
+            outs = []
+            for f in logs:
+                f.seek(0)
+                outs.append(f.read())
+        finally:
+            for f in logs:
+                f.close()
     for c, p, o in zip(cmds, procs, outs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}): "
                                f"{' '.join(c)}\n{o}")
-    return "".join(outs)
+    return "".join(f"{o}nvcc {os.path.basename(c[-1])}: {t:.1f} s\n"
+                   for c, o, t in zip(cmds, outs, took))
 
 
 def build() -> tuple[Path, str]:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from supersdr_tpu_torch.device import default_device
 from supersdr_tpu_torch.ops import agc, cx, demod, mixer, squelch
 from supersdr_tpu_torch.runtime import chain, wideband
 
@@ -54,6 +55,9 @@ def _rebuild(kind, src, leaf):
 
 
 def _to_tensor(device):
+    """Leaf converter onto `device` (None: the current CUDA device)."""
+    device = default_device(device)
+
     def leaf(v):
         a = np.asarray(v)
         a = a.astype(np.int32 if np.issubdtype(a.dtype, np.integer)

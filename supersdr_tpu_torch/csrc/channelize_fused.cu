@@ -7,211 +7,471 @@
 // What it computes (M = n1·n2 channels, K taps a branch, nf frames):
 //   seg   = [K−1 carry rows (head) | x rows]                    [K−1+nf, M]
 //   fold[t, r]     = Σ_k g2[k, r]·seg[t+k, r]
-//   Y[k1, t, j2]   = Σ_j1 At[j1·n1+k1, j2]·fold[t, j1·n2+j2]   (twiddle folded)
+//   Y[k1, t, j2]   = Σ_j1 At[j1·n1+k1, j2]·fold[t, j1·n2+j2]  (twiddle folded)
 //   out[k1, t, k2] = Σ_j2 Y[k1, t, j2]·C2[j2, k2]               (complex)
 // The output is the reference's raw planar layout [n1, nf, n2] (planar
 // channel k1·n2 + k2 is PFB bin k2·n1 + k1), or its out_layout="time",
 // [nf, M] with bin k2·n1 + k1 in column order (the wideband time-major tier
-// off the planar coupling), whose stores are n1 elements apart across a
-// warp: a first, uncoalesced version. The layout is a template parameter:
-// output strides passed as kernel arguments slowed the float32 tier ~5 % at
-// the headline shape on an H100. int16 input is dequantized
-// ×in_scale on load; the bf16 tier rounds stage B's operands to bf16
-// (Y here, C2 in the host table) and accumulates in f32.
+// off the planar coupling). The layout is a template parameter: output
+// strides passed as kernel arguments slowed the kernel ~5 % at the headline
+// shape on an H100. int16 input is dequantized ×in_scale as it is read.
 //
-// What bounds it on this card: stage B. Per frame it is an [n1, n2]×[n2, n2]
-// complex product, 4·M·n2 real MACs against 8·M input bytes (f32) — at the
-// 2560-channel headline about 85 GFLOP a chunk for 330 MB read, well above
-// the HBM/FP32 balance point, so the kernel is compute bound on the CUDA
-// cores' FP32 FMAs (this first version does not use the tensor cores).
+// What bounds it on this card: bytes (330 MB read, 165 MB of bf16 written a
+// 2560-channel × 16128-frame chunk: 0.15 ms at 3.35 TB/s). Stage B is an
+// [n1, n2]×[n2, n2] complex product a frame, about 85 GFLOP a chunk: 0.09 ms
+// at the bf16 tensor-core peak, 1.3 ms on the CUDA cores, where it ran
+// before and took 4.6 ms. On the tensor cores the fold and stage A (4.6
+// GFLOP in float32, and 1 MB a block of rows and tables out of L2) are the
+// larger part.
 //
 // Design: one block owns T consecutive frames (T = 8 at 2560 channels) and
-// keeps the whole stage-A output Y[n1·T, n2] in shared memory, so neither
-// the fold nor Y touches device memory. Phase 1: thread j2 folds column
-// j1·n2+j2 for its T frames (coalesced across j2) and accumulates the n1
-// stage-A outputs it feeds into Y. Every block reads its own K−1 history
-// rows (from the head for the first frames), so blocks are independent and
-// run in any order; frames past nf are masked. A column's T+K−1 segment
-// rows are loaded into registers at once, so their global-load latencies
-// overlap (taps_per ≤ 8; the wrapper refuses more). Phase 2: stage B as a
-// register-tiled product: each thread owns one output column and up to 40
-// rows, reads each C2 element once (coalesced, L2-resident, prefetched one
-// step ahead) and broadcasts 2 rows of Y per 16-byte shared load, so one
-// C2 load feeds 160 FMAs. Y is stored [j2][row] with a row stride ≡ 2
-// (mod 16) to keep phase 1's column writes at a 2-way bank conflict.
-// Tensor-core stage B (mma.sync / wgmma) is the next step.
+// keeps the stage-A output as the bf16 matrix Y[n1·T rows, Yr | Yi] in
+// shared memory; 256 threads, one block an SM. Blocks read their own K − 1
+// history rows, so they run in any order; frames past nf are masked.
+//  * Phase 1 walks stages of one column group j1 and 4 frames: thread j2
+//    folds column j1·n2 + j2 and accumulates the n1 stage-A outputs in
+//    registers over j1, so Y is written once. The 4 + K − 1 input rows of a
+//    stage arrive through a two-tile shared ring filled by 16-byte cp.async
+//    copies one stage ahead (int16 rows as they are: no 2-byte loads), and
+//    the stage's fold taps and stage-A factors are loaded into registers
+//    one stage ahead: when these table loads sat inside the stage, in a
+//    predicated loop the compiler did not hoist them out of, they serialized
+//    on L2 latency and the phase took 1.5 ms instead of 0.6.
+//  * Phase 2 is stage B as the real product [Yr | Yi]·[[Cr, Ci], [−Ci, Cr]]
+//    on mma.sync m16n8k16 (bf16 → f32): a warp owns 16 output columns and
+//    all row tiles, A fragments come by ldmatrix (row stride ≡ 4 words mod
+//    32: conflict-free), B fragments are 32-bit loads of the transposed bf16
+//    DFT table from L2, one k-step ahead (a warp is the only reader of its
+//    columns, so staging them in shared memory would buy no reuse), −Ci by
+//    flipping sign bits.
+//  * bf16_b (the fast profile) rounds Y and the table to bf16: one pass.
+//    Otherwise (the quality profile) both stay float32, each split into a
+//    high and a low bf16 piece (x ≈ hi + lo, 16 significant bits), and the
+//    product is hi·hi + hi·lo + lo·hi in three passes into the same float32
+//    accumulators: 108 dB against the float32 plain version where one bf16
+//    pass gives 50 and one TF32 pass about 70, at 1.3 ms where the CUDA-core
+//    product took 4.8.
+//  * The raw planes are stored from the accumulators (a warp writes whole
+//    32-byte sectors of a row). The time-major store stages each warp's
+//    [T, 16·n1] run of consecutive bins in shared memory (the ring's space,
+//    free by then), a plane at a time, and writes 16 bytes a lane.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTx = 128;             // phase-2 output columns per pass
-constexpr int kRT = 8;               // phase-2 rows per thread
-constexpr int kRowChunk = 2 * kRT;   // rows per chunk (2 row groups)
-constexpr int kMaxChunks = 5;       // chunks a thread holds in registers
-constexpr int kKMax = 8;            // most fold taps a branch (registers)
-constexpr int kSmemBudget = 200 * 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kN2Step = 128;      // n2 is a multiple of this
+constexpr int kKMax = 8;          // most fold taps a branch (registers)
+constexpr int kK1G = 10;          // stage-A outputs a thread accumulates
+constexpr int kMG = 5;            // 16-row tiles a warp accumulates at once
+constexpr int kWN = 16;           // output columns a warp owns in a pass
+constexpr int kSmemMax = 227 * 1024;   // a block's most
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+template <bool kI16, typename In>
+__device__ __forceinline__ float to_float(In v, float s) {
+  return kI16 ? float(v) * s : float(v);
 }
 
-template <bool kI16>
-__device__ __forceinline__ float load_x(const void* p, long idx, float s) {
-  if (kI16) return float(static_cast<const int16_t*>(p)[idx]) * s;
-  return static_cast<const float*>(p)[idx];
+// 16 bytes from global to shared memory, asynchronously; src_bytes = 0
+// fills the 16 with zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__host__ __device__ __forceinline__ int rows_padded(int n1, int T) {
-  return (n1 * T + kRowChunk - 1) / kRowChunk * kRowChunk;
+__host__ __device__ __forceinline__ int y_rows(int n1, int T) {
+  return (n1 * T + 15) / 16 * 16;
+}
+__host__ __device__ __forceinline__ int y_stride(int n2) {
+  return 2 * n2 + 8;  // bf16 elements: n2 + 4 words, ≡ 4 (mod 32)
+}
+__host__ __device__ __forceinline__ int stage_stride(int n1) {
+  return kWN * n1 + 4;
 }
 
-template <int T, bool kI16, bool kOutBf16, bool kTime>
-__global__ void __launch_bounds__(kThreads)
-channelize_kernel(const void* __restrict__ x_re, const void* __restrict__ x_im,
-                  float in_scale, const float* __restrict__ head_re,
-                  const float* __restrict__ head_im,
-                  const float* __restrict__ g2, const float* __restrict__ at_r,
-                  const float* __restrict__ at_i,
-                  const float2* __restrict__ c2, void* out_r, void* out_i,
-                  int nf, int M, int K, int n1, int n2, int bf16_b) {
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// D (16×8, f32) += A (16×16, bf16, row) · B (16×8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (cr, ci) += (a_r + i·a_i)·(b_r + i·b_i) on one 16×8 tile
+__device__ __forceinline__ void cmma(float (&cr)[4], float (&ci)[4],
+                                     const uint32_t (&a_r)[4],
+                                     const uint32_t (&a_i)[4],
+                                     const uint32_t (&b_r)[2],
+                                     const uint32_t (&b_i)[2]) {
+  const uint32_t kNeg = 0x80008000u;
+  mma_bf16(cr, a_r, b_r[0], b_r[1]);
+  mma_bf16(cr, a_i, b_i[0] ^ kNeg, b_i[1] ^ kNeg);
+  mma_bf16(ci, a_r, b_i[0], b_i[1]);
+  mma_bf16(ci, a_i, b_r[0], b_r[1]);
+}
+
+// v as bf16 at p; kSplit: and what bf16 left of it, `lo` elements on
+template <bool kSplit>
+__device__ __forceinline__ void put_y(__nv_bfloat16* p, size_t lo, float v) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(v);
+  *p = h;
+  if (kSplit) p[lo] = __float2bfloat16_rn(v - __bfloat162float(h));
+}
+
+// ct: the stage-B DFT transposed, bf16 planes [2 (re, im)][n2 (k2)][n2 (j2)];
+// kSplit: two more planes, the low pieces of re and im.
+template <int T, bool kI16, bool kOutBf16, bool kTime, bool kSplit>
+__global__ void __launch_bounds__(kThreads, 1)
+channelize_mma_kernel(const void* __restrict__ x_re,
+                      const void* __restrict__ x_im, float in_scale,
+                      const float* __restrict__ head_re,
+                      const float* __restrict__ head_im,
+                      const float* __restrict__ g2,
+                      const float* __restrict__ at_r,
+                      const float* __restrict__ at_i,
+                      const __nv_bfloat16* __restrict__ ct, void* out_r,
+                      void* out_i, int nf, int M, int K, int n1, int n2) {
   extern __shared__ float4 smem_f4[];
-  float2* ys = reinterpret_cast<float2*>(smem_f4);
+  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem_f4);
   const int t0 = blockIdx.x * T;
   const int R = n1 * T;
-  const int Rpad = rows_padded(n1, T);
-  const int Rs = Rpad + 2;  // row stride of ys (complex elements)
+  const int Rpad = y_rows(n1, T);
+  const int Sy = y_stride(n2);
   const int tid = threadIdx.x;
+  constexpr int NP = kSplit ? 2 : 1;      // operand pieces: high (and low)
+  const size_t ylo = (size_t)Rpad * Sy;   // from a high piece to its low one
 
-  for (int i = tid; i < n2 * Rs; i += kThreads) ys[i] = make_float2(0.f, 0.f);
-  __syncthreads();
+  for (int i = tid; i < (Rpad - R) * Sy; i += kThreads) {
+    ys[R * Sy + i] = __float2bfloat16_rn(0.f);
+    if (kSplit) ys[ylo + R * Sy + i] = __float2bfloat16_rn(0.f);
+  }
 
-  // ---- phase 1: fold + stage A into ys[j2][k1·T + t]
+  // ---- phase 1: fold + stage A into ys[k1·T + t][j2 | n2 + j2]
   const int hk = K - 1;
-  // virtual segment row v of column r: carry head, input, or 0 past nf
-  auto seg = [&](int v, int r, float& xr, float& xi) {
-    xr = xi = 0.f;
-    if (v < hk) {
-      xr = head_re[(long)v * M + r];
-      xi = head_im[(long)v * M + r];
-    } else if (v - hk < nf) {
-      const long idx = (long)(v - hk) * M + r;
-      xr = load_x<kI16>(x_re, idx, in_scale);
-      xi = load_x<kI16>(x_im, idx, in_scale);
+  const int warp = tid >> 5, lane = tid & 31;
+  constexpr int TH = T < 4 ? T : 4;  // frames a pass
+  const int nkg = (n1 + kK1G - 1) / kK1G;
+  const int n_stages = (n2 + kThreads - 1) / kThreads * (T / TH) * nkg * n1;
+  // a stage: column block jb, frames th …, stage-A outputs kg …, column
+  // group j1 (j1 fastest: the outputs accumulate over it in registers)
+  struct Stage {
+    int jb, th, kg, j1;
+  };
+  auto next = [&](Stage c) {
+    if (++c.j1 < n1) return c;
+    c.j1 = 0;
+    if ((c.kg += kK1G) < n1) return c;
+    c.kg = 0;
+    if ((c.th += TH) < T) return c;
+    c.th = 0;
+    c.jb += kThreads;
+    return c;
+  };
+  // The rows a stage folds, TH + K − 1 of one column group, come through a
+  // ring of two tiles [2 (re, im)][rows][kThreads] in the input's type,
+  // filled by 16-byte asynchronous copies one stage ahead (a warp a row;
+  // rows past the chunk are zero-filled). The first blocks, whose rows
+  // reach into the carry head (float32 whatever the input is), read global
+  // memory instead.
+  using In = typename std::conditional<kI16, int16_t, float>::type;
+  constexpr int kPiece = 16 / (int)sizeof(In);  // elements a 16-byte copy
+  In* ring = reinterpret_cast<In*>(ys + NP * ylo);
+  const int rows_st = TH + hk;
+  const size_t tile_elems = 2 * (size_t)(TH + kKMax - 1) * kThreads;
+  const bool staged = t0 >= hk;
+  auto fill = [&](const Stage& st, int buf) {
+    const int cols = min(kThreads, n2 - st.jb);
+    const long col0 = (long)st.j1 * n2 + st.jb;
+    for (int rw = warp; rw < 2 * rows_st; rw += kWarps) {
+      const int pl = rw >= rows_st, row = rw - pl * rows_st;
+      const int f = t0 + st.th + row - hk;  // the input frame of this row
+      const In* src = static_cast<const In*>(pl ? x_im : x_re) +
+                      (f < nf ? (long)f * M + col0 : 0);
+      In* dst = ring + buf * tile_elems + (size_t)rw * kThreads;
+      for (int c = lane * kPiece; c < cols; c += 32 * kPiece)
+        cp_async16(dst + c, src + c, f < nf ? 16 : 0);
     }
   };
-  for (int j2 = tid; j2 < n2; j2 += kThreads) {
-    float2* ycol = ys + (long)j2 * Rs;
-    for (int j1 = 0; j1 < n1; ++j1) {
+  // a stage's fold taps and stage-A twiddles, loaded a stage ahead (the
+  // loads' latency passes under the stage before; indices clamped, what
+  // lies past K or n1 is not used)
+  auto tables = [&](const Stage& st, float(&g)[kKMax], float(&ar)[kK1G],
+                    float(&ai)[kK1G]) {
+    const int j2 = min(st.jb + tid, n2 - 1);
+#pragma unroll
+    for (int k = 0; k < kKMax; ++k)
+      g[k] = __ldg(g2 + (long)min(k, K - 1) * M + st.j1 * n2 + j2);
+#pragma unroll
+    for (int k1 = 0; k1 < kK1G; ++k1) {
+      const long a = (long)(st.j1 * n1 + min(st.kg + k1, n1 - 1)) * n2 + j2;
+      ar[k1] = __ldg(at_r + a);
+      ai[k1] = __ldg(at_i + a);
+    }
+  };
+  Stage cur{0, 0, 0, 0};
+  if (staged) {
+    fill(cur, 0);
+    cp_async_commit();
+  }
+  float yr[kK1G][TH], yi[kK1G][TH];
+  float gk[kKMax], ark[kK1G], aik[kK1G];
+  tables(cur, gk, ark, aik);
+  for (int s = 0; s < n_stages; ++s) {
+    const int th = cur.th, kg = cur.kg, j1 = cur.j1;
+    const int j2 = cur.jb + tid;
+    const bool on = j2 < n2;
+    const bool more = s + 1 < n_stages;
+    const Stage nxt = more ? next(cur) : cur;
+    float gn[kKMax], arn[kK1G], ain[kK1G];
+    tables(nxt, gn, arn, ain);
+    if (j1 == 0) {
+#pragma unroll
+      for (int k1 = 0; k1 < kK1G; ++k1)
+#pragma unroll
+        for (int t = 0; t < TH; ++t) yr[k1][t] = yi[k1][t] = 0.f;
+    }
+    if (staged) {
+      if (more) fill(nxt, (s + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // all but the newest group: this stage's tile
+      __syncthreads();
+    }
+    if (on) {
       const int r = j1 * n2 + j2;
-      float fr[T], fi[T];
+      float sr[TH + kKMax - 1], si[TH + kKMax - 1];
+      const In* xs = ring + (s & 1) * tile_elems + tid;
 #pragma unroll
-      for (int t = 0; t < T; ++t) fr[t] = fi[t] = 0.f;
-      // all T+K−1 rows of the column in flight at once, then the fold
-      float sr[T + kKMax - 1], si[T + kKMax - 1];
-#pragma unroll
-      for (int v = 0; v < T + kKMax - 1; ++v) {
+      for (int v = 0; v < TH + kKMax - 1; ++v) {
         sr[v] = si[v] = 0.f;
-        if (v < T + hk) seg(t0 + v, r, sr[v], si[v]);
+        if (v >= rows_st) continue;
+        if (staged) {
+          sr[v] = to_float<kI16>(xs[v * kThreads], in_scale);
+          si[v] = to_float<kI16>(xs[(rows_st + v) * kThreads], in_scale);
+        } else if (t0 + th + v < hk) {
+          sr[v] = head_re[(long)(t0 + th + v) * M + r];
+          si[v] = head_im[(long)(t0 + th + v) * M + r];
+        } else if (t0 + th + v - hk < nf) {
+          const long idx = (long)(t0 + th + v - hk) * M + r;
+          sr[v] = to_float<kI16>(static_cast<const In*>(x_re)[idx], in_scale);
+          si[v] = to_float<kI16>(static_cast<const In*>(x_im)[idx], in_scale);
+        }
       }
+      float fr[TH], fi[TH];
+#pragma unroll
+      for (int t = 0; t < TH; ++t) fr[t] = fi[t] = 0.f;
 #pragma unroll
       for (int k = 0; k < kKMax; ++k) {
         if (k < K) {
-          const float g = g2[(long)k * M + r];
 #pragma unroll
-          for (int t = 0; t < T; ++t) {
-            fr[t] += g * sr[t + k];
-            fi[t] += g * si[t + k];
+          for (int t = 0; t < TH; ++t) {
+            fr[t] += gk[k] * sr[t + k];
+            fi[t] += gk[k] * si[t + k];
           }
         }
       }
-      for (int k1 = 0; k1 < n1; ++k1) {
-        const long a = (long)(j1 * n1 + k1) * n2 + j2;
-        const float ar = at_r[a], ai = at_i[a];
-        float4* yp = reinterpret_cast<float4*>(ycol + k1 * T);
 #pragma unroll
-        for (int q = 0; q < T / 2; ++q) {
-          float4 y = yp[q];
-          y.x += ar * fr[2 * q] - ai * fi[2 * q];
-          y.y += ar * fi[2 * q] + ai * fr[2 * q];
-          y.z += ar * fr[2 * q + 1] - ai * fi[2 * q + 1];
-          y.w += ar * fi[2 * q + 1] + ai * fr[2 * q + 1];
-          yp[q] = y;
+      for (int k1 = 0; k1 < kK1G; ++k1) {
+        if (kg + k1 < n1) {
+#pragma unroll
+          for (int t = 0; t < TH; ++t) {
+            yr[k1][t] += ark[k1] * fr[t] - aik[k1] * fi[t];
+            yi[k1][t] += ark[k1] * fi[t] + aik[k1] * fr[t];
+          }
         }
       }
-    }
-  }
-  __syncthreads();
-  if (bf16_b) {
-    for (int i = tid; i < n2 * Rs; i += kThreads) {
-      float2 v = ys[i];
-      ys[i] = make_float2(bf16_round(v.x), bf16_round(v.y));
-    }
-    __syncthreads();
-  }
-
-  // ---- phase 2: out[row, k2] = Σ_j2 ys[j2][row]·c2[j2][k2]. A thread
-  // owns one column and up to kMaxChunks 8-row chunks (rows s0 + q·16 +
-  // ty·8 + i), so each C2 element is read once per pass and feeds up to
-  // 40 complex MACs; the next j2's C2 element is loaded ahead.
-  const int tx = tid % kTx;
-  const int ty = tid / kTx;
-  for (int cb = 0; cb < n2; cb += kTx) {
-    const int col = cb + tx;
-    for (int s0 = 0; s0 < Rpad; s0 += kMaxChunks * kRowChunk) {
-      const int nq = min(kMaxChunks, (Rpad - s0) / kRowChunk);
-      float2 acc[kMaxChunks][kRT];
+      if (j1 == n1 - 1) {
 #pragma unroll
-      for (int q = 0; q < kMaxChunks; ++q)
+        for (int k1 = 0; k1 < kK1G; ++k1) {
+          if (kg + k1 < n1) {
 #pragma unroll
-        for (int i = 0; i < kRT; ++i) acc[q][i] = make_float2(0.f, 0.f);
-      const float2* ybase = ys + s0 + ty * kRT;
-      float2 c = __ldg(c2 + col);
-      for (int j2 = 0; j2 < n2; ++j2) {
-        const float2 cn =
-            j2 + 1 < n2 ? __ldg(c2 + (long)(j2 + 1) * n2 + col) : c;
-        const float2* yb = ybase + (long)j2 * Rs;
-#pragma unroll
-        for (int q = 0; q < kMaxChunks; ++q) {
-          if (q < nq) {
-            const float4* yp =
-                reinterpret_cast<const float4*>(yb + q * kRowChunk);
-#pragma unroll
-            for (int h = 0; h < kRT / 2; ++h) {
-              const float4 y = yp[h];
-              acc[q][2 * h].x += y.x * c.x - y.y * c.y;
-              acc[q][2 * h].y += y.x * c.y + y.y * c.x;
-              acc[q][2 * h + 1].x += y.z * c.x - y.w * c.y;
-              acc[q][2 * h + 1].y += y.z * c.y + y.w * c.x;
+            for (int t = 0; t < TH; ++t) {
+              __nv_bfloat16* yp = ys + ((kg + k1) * T + th + t) * Sy + j2;
+              put_y<kSplit>(yp, ylo, yr[k1][t]);
+              put_y<kSplit>(yp + n2, ylo, yi[k1][t]);
             }
           }
         }
-        c = cn;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kKMax; ++k) gk[k] = gn[k];
+#pragma unroll
+    for (int k1 = 0; k1 < kK1G; ++k1) {
+      ark[k1] = arn[k1];
+      aik[k1] = ain[k1];
+    }
+    cur = nxt;
+    // the tile is free for the fill after next; Y is whole after the last
+    __syncthreads();
+  }
+  if (staged) cp_async_wait<0>();
+
+  // ---- phase 2: [Yr | Yi]·[[Cr, Ci], [−Ci, Cr]] on the tensor cores
+  const int g = lane >> 2, tig = lane & 3;
+  const int mtiles = Rpad / 16;
+  // ldmatrix: lane l addresses row l % 16 of the tile, columns (l / 16)·8
+  const uint32_t ya0 =
+      static_cast<uint32_t>(__cvta_generic_to_shared(ys)) +
+      2u * ((lane & 15) * Sy + (lane >> 4) * 8);
+  const uint32_t* ctw = reinterpret_cast<const uint32_t*>(ct);
+  const int cw = n2 / 2;                   // words a table row
+  const long plane_w = (long)n2 * cw;      // words a table plane
+  const int ss = stage_stride(n1);
+  float* stg = reinterpret_cast<float*>(ys + NP * ylo) + (size_t)warp * T * ss;
+  for (int nb = warp * kWN; nb < n2; nb += kWarps * kWN) {
+    // B fragments of this lane: table rows nb + g and nb + 8 + g, as
+    // [piece][re | im][8-column half][word]
+    const uint32_t* b_r0 = ctw + (long)(nb + g) * cw + tig;
+    const uint32_t* b_r1 = b_r0 + 8 * cw;
+    auto load_b = [&](uint32_t (&b)[NP][2][2][2], int kw) {
+#pragma unroll
+      for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+        for (int ri = 0; ri < 2; ++ri) {
+          const long off = (long)(2 * pc + ri) * plane_w + kw;
+          b[pc][ri][0][0] = __ldg(b_r0 + off);
+          b[pc][ri][0][1] = __ldg(b_r0 + off + 4);
+          b[pc][ri][1][0] = __ldg(b_r1 + off);
+          b[pc][ri][1][1] = __ldg(b_r1 + off + 4);
+        }
+    };
+    for (int mg = 0; mg < mtiles; mg += kMG) {
+      float cr[kMG][2][4], ci[kMG][2][4];
+#pragma unroll
+      for (int m = 0; m < kMG; ++m)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) cr[m][q][i] = ci[m][q][i] = 0.f;
+      uint32_t b[NP][2][2][2];
+      load_b(b, 0);
+      for (int k0 = 0; k0 < n2; k0 += 16) {
+        // the next k-step's table words, in flight during this step's mma
+        uint32_t bn[NP][2][2][2];
+        load_b(bn, (k0 + 16 < n2 ? k0 + 16 : k0) / 2);
+#pragma unroll
+        for (int m = 0; m < kMG; ++m) {
+          if (mg + m < mtiles) {
+            uint32_t a[NP][2][4];
+            const uint32_t row = ya0 + 2u * ((mg + m) * 16 * Sy + k0);
+#pragma unroll
+            for (int pc = 0; pc < NP; ++pc) {
+              ldmatrix_x4(a[pc][0], row + 2u * (uint32_t)(pc * ylo));
+              ldmatrix_x4(a[pc][1], row + 2u * (uint32_t)(pc * ylo + n2));
+            }
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              cmma(cr[m][q], ci[m][q], a[0][0], a[0][1], b[0][0][q],
+                   b[0][1][q]);
+              if (kSplit) {  // hi·lo + lo·hi: float32 operands in three passes
+                cmma(cr[m][q], ci[m][q], a[0][0], a[0][1], b[NP - 1][0][q],
+                     b[NP - 1][1][q]);
+                cmma(cr[m][q], ci[m][q], a[NP - 1][0], a[NP - 1][1],
+                     b[0][0][q], b[0][1][q]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+          for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              b[pc][ri][q][0] = bn[pc][ri][q][0];
+              b[pc][ri][q][1] = bn[pc][ri][q][1];
+            }
+      }
+      // accumulators: rows (tile·16 + g | + 8), columns nb + q·8 + 2·tig | +1
+      if (kTime) {
+        // one pass holds every row (the host picks T so): stage the warp's
+        // [T, 16·n1] run of consecutive bins, a plane at a time, and write
+        // it 16 bytes a lane, a frame's run after the other
+        auto store_plane = [&](const float(&acc)[kMG][2][4], float* dst) {
+#pragma unroll
+          for (int m = 0; m < kMG; ++m) {
+            if (m >= mtiles) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = m * 16 + g + h * 8;
+              if (row >= R) continue;
+              const int k1 = row / T, t = row % T;
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+                float* sp = stg + t * ss + (q * 8 + 2 * tig) * n1 + k1;
+                sp[0] = acc[m][q][2 * h];
+                sp[n1] = acc[m][q][2 * h + 1];
+              }
+            }
+          }
+          __syncwarp();
+          const int run = kWN * n1 / 4;  // 16-byte pieces a frame
+          for (int i = lane; i < T * run; i += 32) {
+            const int t = i / run, c = i % run * 4;
+            if (t0 + t < nf)
+              *reinterpret_cast<float4*>(dst + (long)(t0 + t) * M +
+                                         (long)nb * n1 + c) =
+                  *reinterpret_cast<const float4*>(stg + t * ss + c);
+          }
+          __syncwarp();
+        };
+        store_plane(cr, static_cast<float*>(out_r));
+        store_plane(ci, static_cast<float*>(out_i));
+        continue;
       }
 #pragma unroll
-      for (int q = 0; q < kMaxChunks; ++q) {
-        if (q >= nq) continue;
+      for (int m = 0; m < kMG; ++m) {
+        if (mg + m >= mtiles) continue;
 #pragma unroll
-        for (int i = 0; i < kRT; ++i) {
-          const int row = s0 + q * kRowChunk + ty * kRT + i;
+        for (int h = 0; h < 2; ++h) {
+          const int row = (mg + m) * 16 + g + h * 8;
           if (row >= R) continue;
-          const int k1 = row / T;
-          const int tg = t0 + row % T;
+          const int k1 = row / T, t = row % T;
+          const int tg = t0 + t;
           if (tg >= nf) continue;
-          // raw planes [n1, nf, n2], or time-major [nf, M] at bin k2·n1 + k1
-          const long o = kTime ? (long)tg * M + (long)col * n1 + k1
-                               : ((long)k1 * nf + tg) * n2 + col;
-          if (kOutBf16) {
-            static_cast<__nv_bfloat16*>(out_r)[o] =
-                __float2bfloat16_rn(acc[q][i].x);
-            static_cast<__nv_bfloat16*>(out_i)[o] =
-                __float2bfloat16_rn(acc[q][i].y);
-          } else {
-            static_cast<float*>(out_r)[o] = acc[q][i].x;
-            static_cast<float*>(out_i)[o] = acc[q][i].y;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const long o = ((long)k1 * nf + tg) * n2 + nb + q * 8 + 2 * tig;
+            const float vr0 = cr[m][q][2 * h], vr1 = cr[m][q][2 * h + 1];
+            const float vi0 = ci[m][q][2 * h], vi1 = ci[m][q][2 * h + 1];
+            if (kOutBf16) {
+              *reinterpret_cast<__nv_bfloat162*>(
+                  static_cast<__nv_bfloat16*>(out_r) + o) =
+                  __floats2bfloat162_rn(vr0, vr1);
+              *reinterpret_cast<__nv_bfloat162*>(
+                  static_cast<__nv_bfloat16*>(out_i) + o) =
+                  __floats2bfloat162_rn(vi0, vi1);
+            } else {
+              *reinterpret_cast<float2*>(static_cast<float*>(out_r) + o) =
+                  make_float2(vr0, vr1);
+              *reinterpret_cast<float2*>(static_cast<float*>(out_i) + o) =
+                  make_float2(vi0, vi1);
+            }
           }
         }
       }
@@ -219,97 +479,135 @@ channelize_kernel(const void* __restrict__ x_re, const void* __restrict__ x_im,
   }
 }
 
-template <int T, bool kI16, bool kOutBf16, bool kTime>
-cudaError_t launch(const void* x_re, const void* x_im, float in_scale,
-                   const float* head_re, const float* head_im, const float* g2,
-                   const float* at_r, const float* at_i, const float2* c2,
-                   void* out_r, void* out_i, int nf, int M, int K, int n1,
-                   int n2, int bf16_b, cudaStream_t stream) {
-  const size_t smem = (size_t)n2 * (rows_padded(n1, T) + 2) * sizeof(float2);
-  auto kern = channelize_kernel<T, kI16, kOutBf16, kTime>;
+// Y, then the input ring, which the time store's staging reuses
+__host__ size_t mma_smem(int n1, int n2, int T, bool split, bool time) {
+  const size_t y = (size_t)(split ? 2 : 1) * y_rows(n1, T) * y_stride(n2) * 2;
+  const int TH = T < 4 ? T : 4;
+  size_t ring = 2 * 2 * (size_t)(TH + kKMax - 1) * kThreads * sizeof(float);
+  const size_t stage = (size_t)kWarps * T * stage_stride(n1) * sizeof(float);
+  return y + (time && stage > ring ? stage : ring);
+}
+
+// Frames a block owns: the largest T that fits (0: none does). The time
+// store wants every row tile in one pass of accumulators.
+__host__ int mma_tile(int n1, int n2, bool split, bool time) {
+  for (int T = 8; T >= 2; T /= 2) {
+    if (time && y_rows(n1, T) / 16 > kMG) continue;
+    if (mma_smem(n1, n2, T, split, time) <= kSmemMax) return T;
+  }
+  return 0;
+}
+
+template <int T, bool kI16, bool kOutBf16, bool kTime, bool kSplit>
+cudaError_t launch_mma(const void* x_re, const void* x_im, float in_scale,
+                       const float* head_re, const float* head_im,
+                       const float* g2, const float* at_r, const float* at_i,
+                       const __nv_bfloat16* ct, void* out_r, void* out_i,
+                       int nf, int M, int K, int n1, int n2,
+                       cudaStream_t stream) {
+  const size_t smem = mma_smem(n1, n2, T, kSplit, kTime);
+  auto kern = channelize_mma_kernel<T, kI16, kOutBf16, kTime, kSplit>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (nf + T - 1) / T;
   kern<<<blocks, kThreads, smem, stream>>>(x_re, x_im, in_scale, head_re,
-                                           head_im, g2, at_r, at_i, c2, out_r,
-                                           out_i, nf, M, K, n1, n2, bf16_b);
+                                           head_im, g2, at_r, at_i, ct, out_r,
+                                           out_i, nf, M, K, n1, n2);
   return cudaGetLastError();
 }
 
-template <int T>
+// kSplit: float32 stage B in three bf16 passes (ct has four planes).
+template <int T, bool kSplit>
 cudaError_t dispatch_io(int in_i16, int out_bf16, int out_time,
                         const void* x_re, const void* x_im, float in_scale,
                         const float* head_re, const float* head_im,
                         const float* g2, const float* at_r, const float* at_i,
-                        const float2* c2, void* out_r, void* out_i, int nf,
-                        int M, int K, int n1, int n2, int bf16_b,
-                        cudaStream_t s) {
+                        const __nv_bfloat16* ct, void* out_r, void* out_i,
+                        int nf, int M, int K, int n1, int n2, cudaStream_t s) {
 #define SSDR_LAUNCH(I16, BF16, TIME)                                        \
-  return launch<T, I16, BF16, TIME>(x_re, x_im, in_scale, head_re, head_im, \
-                                    g2, at_r, at_i, c2, out_r, out_i, nf, M, \
-                                    K, n1, n2, bf16_b, s)
+  return launch_mma<T, I16, BF16, TIME, kSplit>(                            \
+      x_re, x_im, in_scale, head_re, head_im, g2, at_r, at_i, ct, out_r,    \
+      out_i, nf, M, K, n1, n2, s)
   if (out_time) {  // the time-major store writes float32
     if (in_i16) SSDR_LAUNCH(true, false, true);
     SSDR_LAUNCH(false, false, true);
   }
-  if (in_i16 && out_bf16) SSDR_LAUNCH(true, true, false);
+  if (out_bf16) {
+    if (kSplit) return cudaErrorInvalidValue;  // three passes for bf16 out
+    if (in_i16) SSDR_LAUNCH(true, !kSplit, false);
+    SSDR_LAUNCH(false, !kSplit, false);
+  }
   if (in_i16) SSDR_LAUNCH(true, false, false);
-  if (out_bf16) SSDR_LAUNCH(false, true, false);
   SSDR_LAUNCH(false, false, false);
 #undef SSDR_LAUNCH
+}
+
+template <bool kSplit>
+cudaError_t dispatch_tile(int T, int in_i16, int out_bf16, int out_time,
+                          const void* x_re, const void* x_im, float in_scale,
+                          const float* head_re, const float* head_im,
+                          const float* g2, const float* at_r,
+                          const float* at_i, const __nv_bfloat16* ct,
+                          void* out_r, void* out_i, int nf, int M, int K,
+                          int n1, int n2, cudaStream_t s) {
+#define SSDR_TILE(TT)                                                       \
+  return dispatch_io<TT, kSplit>(in_i16, out_bf16, out_time, x_re, x_im,    \
+                                 in_scale, head_re, head_im, g2, at_r,      \
+                                 at_i, ct, out_r, out_i, nf, M, K, n1, n2, s)
+  switch (T) {
+    case 8:
+      SSDR_TILE(8);
+    case 4:
+      SSDR_TILE(4);
+    case 2:
+      SSDR_TILE(2);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef SSDR_TILE
 }
 
 }  // namespace
 
 extern "C" {
 
-// Frames per block for a config (0: stage-A output does not fit in
-// shared memory). The wrapper reads it to refuse such shapes up front.
-int channelize_fused_tile(int n1, int n2) {
-  for (int T = 8; T >= 2; T /= 2)
-    if ((size_t)n2 * (rows_padded(n1, T) + 2) * sizeof(float2) <= kSmemBudget)
-      return T;
-  return 0;
+// Frames per block for a config and a variant (0: the stage-A output does
+// not fit in shared memory). The wrapper reads it to refuse such shapes up
+// front.
+int channelize_fused_tile(int n1, int n2, int bf16_b, int out_time) {
+  return mma_tile(n1, n2, !bf16_b, out_time != 0);
 }
 
 // x_re/x_im: [nf, M] float32 (in_i16 = 0) or int16 (in_i16 = 1, ×in_scale);
 // head_*: [K−1, M] f32 carry rows; g2: [K, M]; at_*: [n1·n1, n2];
-// c2: [n2, n2] interleaved complex; out_*: the raw planes [n1, nf, n2], f32
-// or bf16 (out_time = 0), or the time-major bin-ordered planes [nf, M], f32
+// ct: the stage-B DFT transposed, bf16 planes [n2 (k2), n2 (j2)] — bf16_b =
+// 1 (stage B on bf16 operands): re, im; bf16_b = 0 (float32 operands, each
+// split in a high and a low bf16 piece, three passes): re, im high, then
+// re, im low; out_*: the raw planes [n1, nf, n2], f32 or (bf16_b only) bf16
+// (out_time = 0), or the time-major bin-ordered planes [nf, M], f32
 // (out_time = 1: element (k1, t, k2) at t·M + k2·n1 + k1).
 int channelize_fused_raw3(const void* x_re, const void* x_im, int in_i16,
                           float in_scale, const float* head_re,
                           const float* head_im, const float* g2,
                           const float* at_r, const float* at_i,
-                          const float* c2, void* out_r, void* out_i,
+                          const void* ct, void* out_r, void* out_i,
                           int out_bf16, int nf, int M, int K, int n1, int n2,
                           int bf16_b, int out_time, void* stream) {
-  if (n1 * n2 != M || n2 % kTx || K < 1 || K > kKMax || nf < 1 ||
+  if (n1 * n2 != M || n2 % kN2Step || K < 1 || K > kKMax || nf < 1 ||
       (out_time && out_bf16))
     return (int)cudaErrorInvalidValue;
-  const int T = channelize_fused_tile(n1, n2);
-  const float2* c2c = reinterpret_cast<const float2*>(c2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (T) {
-    case 8:
-      return (int)dispatch_io<8>(in_i16, out_bf16, out_time, x_re, x_im,
-                                 in_scale, head_re, head_im, g2, at_r, at_i,
-                                 c2c, out_r, out_i, nf, M, K, n1, n2, bf16_b,
-                                 s);
-    case 4:
-      return (int)dispatch_io<4>(in_i16, out_bf16, out_time, x_re, x_im,
-                                 in_scale, head_re, head_im, g2, at_r, at_i,
-                                 c2c, out_r, out_i, nf, M, K, n1, n2, bf16_b,
-                                 s);
-    case 2:
-      return (int)dispatch_io<2>(in_i16, out_bf16, out_time, x_re, x_im,
-                                 in_scale, head_re, head_im, g2, at_r, at_i,
-                                 c2c, out_r, out_i, nf, M, K, n1, n2, bf16_b,
-                                 s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const __nv_bfloat16* t = static_cast<const __nv_bfloat16*>(ct);
+  const int T = mma_tile(n1, n2, !bf16_b, out_time != 0);
+  if (bf16_b)
+    return (int)dispatch_tile<false>(T, in_i16, out_bf16, out_time, x_re,
+                                     x_im, in_scale, head_re, head_im, g2,
+                                     at_r, at_i, t, out_r, out_i, nf, M, K,
+                                     n1, n2, s);
+  return (int)dispatch_tile<true>(T, in_i16, out_bf16, out_time, x_re, x_im,
+                                  in_scale, head_re, head_im, g2, at_r, at_i,
+                                  t, out_r, out_i, nf, M, K, n1, n2, s);
 }
 
 }  // extern "C"

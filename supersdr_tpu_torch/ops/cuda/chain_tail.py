@@ -274,11 +274,14 @@ def chain_tail_fir(x_r: torch.Tensor, x_i: torch.Tensor,
     st_rows: [4 + per, C] state rows; params: [9] (module docstring);
     w2: the passband Toeplitz matrix, real [W, B] or complex-folded
     [2W, 2B] (`fir_matmul.build_w_free[_real]`); P: [per, L] polyphase
-    matrix. fir_bf16 / rs_bf16 round the FIR / resampler operands to bf16.
+    matrix. fir_bf16 / rs_bf16 round the FIR / resampler operands to bf16
+    (the kernel runs the FIR on the tensor cores either way: one pass on
+    bf16 operands, three on float32 operands split in two bf16 pieces).
     tile_t is the reference's tail tile: the plain version scans in tiles
     of it, and both apply the peak tracker's decay as one offset per tile
-    and hang in tiles of it (the kernel runs its recurrences sequentially
-    otherwise); hang_window: the AGC hang window in samples (≤ 1 = none).
+    and hang in tiles of it (the kernel scans in pieces of 256 samples, a
+    warp a channel, whatever the tile); hang_window: the AGC hang window in
+    samples (≤ 1 = none).
     Returns (audio [nf·L, C] float32, state rows out)."""
     n1, nf, n2 = x_r.shape
     C = n1 * n2

@@ -14,6 +14,12 @@ order m = k2·n1 + k1, written by the same kernel (a second store
 path). The port runs stage B unsplit, so the column order is the
 identity (the reference's radix-2 stage-B split exists to halve TPU MXU
 work; `runtime.wideband._split_levels_for`).
+
+The kernel runs stage B on the tensor cores in both tiers: `bf16_b` in one
+pass on operands rounded to bf16 (what the plain version rounds too); else
+on float32 operands split in a high and a low bf16 piece, three passes
+(≥ 100 dB against the float32 plain version, which
+`tests/test_torch_split_product.py` models on the CPU).
 """
 
 from __future__ import annotations
@@ -47,6 +53,22 @@ def _tables(M: int, n1: int, n2: int, bf16_b: bool, device: str
     return (torch.from_numpy(At_r).to(device),
             torch.from_numpy(At_i).to(device),
             c2.contiguous().to(device))
+
+
+@lru_cache(maxsize=16)
+def _stageb_table_bf16(M: int, n1: int, n2: int, split: bool, device: str
+                       ) -> torch.Tensor:
+    """The stage-B DFT as the kernel's tensor-core product reads it:
+    transposed bf16 planes [re, im][n2 (k2), n2 (j2)], the values `_tables`
+    rounds to. split (float32 operands in three bf16 passes): two more
+    planes, what bf16 left of re and im, rounded to bf16 again."""
+    _, _, c2r, c2i = channelizer._dif_tables(M, n1, n2)
+    ct = torch.from_numpy(np.ascontiguousarray(
+        np.stack([c2r.T, c2i.T]))).float()
+    hi = ct.to(torch.bfloat16)
+    if split:
+        hi = torch.cat([hi, (ct - hi.float()).to(torch.bfloat16)])
+    return hi.contiguous().to(device)
 
 
 def channelize_fused_plain(g2: torch.Tensor, At_r: torch.Tensor,
@@ -102,12 +124,18 @@ def _launch(g2, At_r, At_i, c2, head_r, head_i, x_r, x_i, *, n1, n2,
     lib = _build.load()
     nf, M = x_r.shape
     K = g2.shape[0]
-    if lib.channelize_fused_tile(n1, n2) == 0:
+    if lib.channelize_fused_tile(n1, n2, int(bf16_b),
+                                 int(out_layout == "time")) == 0:
         raise ValueError(f"factoring ({n1}, {n2}): the stage-A tile does "
                          "not fit in shared memory")
     if K > MAX_TAPS_PER:
         raise ValueError(f"the kernel folds at most {MAX_TAPS_PER} taps a "
                          f"branch, got taps_per={K}")
+    if x_r.data_ptr() % 16 or x_i.data_ptr() % 16:
+        # the kernel copies rows in 16-byte pieces
+        x_r, x_i = x_r.clone(), x_i.clone()
+    # stage B on the tensor cores reads its own table layout, not c2
+    ct = _stageb_table_bf16(M, n1, n2, not bf16_b, str(x_r.device))
     shape = (nf, M) if out_layout == "time" else (n1, nf, n2)
     out_r = torch.empty(shape, dtype=out_dtype, device=x_r.device)
     out_i = torch.empty_like(out_r)
@@ -116,9 +144,10 @@ def _launch(g2, At_r, At_i, c2, head_r, head_i, x_r, x_i, *, n1, n2,
         p(x_r.data_ptr()), p(x_i.data_ptr()), int(x_r.dtype == torch.int16),
         float(in_scale), p(head_r.data_ptr()), p(head_i.data_ptr()),
         p(g2.data_ptr()), p(At_r.data_ptr()), p(At_i.data_ptr()),
-        p(c2.data_ptr()), p(out_r.data_ptr()), p(out_i.data_ptr()),
+        p(ct.data_ptr()), p(out_r.data_ptr()), p(out_i.data_ptr()),
         int(out_dtype == torch.bfloat16), nf, M, K, n1, n2, int(bf16_b),
-        int(out_layout == "time"), p(torch.cuda.current_stream(x_r.device).cuda_stream))
+        int(out_layout == "time"),
+        p(torch.cuda.current_stream(x_r.device).cuda_stream))
     _build.check(err, "channelize_fused_raw3")
     channelize_fused_raw3.launches += 1
     return out_r, out_i

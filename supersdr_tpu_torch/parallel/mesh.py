@@ -17,6 +17,8 @@ from dataclasses import dataclass
 
 import torch
 
+from supersdr_tpu_torch.device import default_device  # noqa: F401 (alias)
+
 CHAN_AXIS = "chan"
 TIME_AXIS = "time"
 
@@ -32,24 +34,14 @@ class Mesh:
         return {CHAN_AXIS: self.n_chan, TIME_AXIS: self.n_time}
 
 
-def default_device(device=None) -> torch.device:
-    """`device` with its index made explicit; None: the current CUDA card
-    when there is one, else the CPU."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
-
-
 def make_mesh(n_chan: int | None = None, n_time: int | None = None,
               device=None, n_shards: int | None = None) -> Mesh:
     """A ('chan', 'time') mesh of n_chan × n_time shards on `device` (the
-    CUDA card when there is one, else the CPU). With `n_shards` (the
-    reference's device count) a missing axis is filled in from it —
-    neither given: all shards on the channel axis — and the product must
-    equal it; without it a missing axis is 1."""
+    current CUDA device unless one is given; without a card, pass
+    device="cpu"). With `n_shards` (the reference's device count) a
+    missing axis is filled in from it — neither given: all shards on the
+    channel axis — and the product must equal it; without it a missing
+    axis is 1."""
     if n_shards is not None:
         if n_chan is None and n_time is None:
             n_chan, n_time = n_shards, 1

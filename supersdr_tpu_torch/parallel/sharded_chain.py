@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from supersdr_tpu_torch.device import default_device
 from supersdr_tpu_torch.ops import agc as agc_ops
 from supersdr_tpu_torch.ops import cx
 from supersdr_tpu_torch.ops import demod as demod_ops
@@ -32,8 +33,7 @@ from supersdr_tpu_torch.ops import (fir_matmul, mixer, overlap_save,
                                     resample, smeter)
 from supersdr_tpu_torch.ops import squelch as squelch_ops
 from supersdr_tpu_torch.parallel import collectives
-from supersdr_tpu_torch.parallel.mesh import (TIME_AXIS, Mesh,
-                                              default_device)
+from supersdr_tpu_torch.parallel.mesh import TIME_AXIS, Mesh
 from supersdr_tpu_torch.runtime import chain as chain_mod
 from supersdr_tpu_torch.runtime.chain import (ChainConfig, ChainOutput,
                                               ChainParams, ChainState)
@@ -204,8 +204,8 @@ def make_params(cfg: ChainConfig, n_chan: int,
                 freq_offsets_hz: np.ndarray | float = 0.0, device=None,
                 **kwargs) -> ChainParams:
     """Per-channel params for the sharded chain: the offsets broadcast to
-    [n_chan]; `device` defaults as the mesh's does (`make_mesh`: the CUDA
-    card when there is one); everything else as `chain.make_params`."""
+    [n_chan]; `device` defaults as the mesh's does (`make_mesh`: the
+    current CUDA device); everything else as `chain.make_params`."""
     offs = np.broadcast_to(np.asarray(freq_offsets_hz, np.float64), (n_chan,))
     return chain_mod.make_params(cfg, freq_offset_hz=offs,
                                  device=default_device(device), **kwargs)

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from supersdr_tpu_torch.device import default_device
 from supersdr_tpu_torch.ops import agc as agc_ops
 from supersdr_tpu_torch.ops import cx
 from supersdr_tpu_torch.ops import demod as demod_ops
@@ -181,9 +182,11 @@ def make_params(cfg: ChainConfig,
                 squelch_kwargs: dict | None = None,
                 blanker_kwargs: dict | None = None,
                 device=None) -> ChainParams:
-    """Host-side build (float64 design, float32 tensors on `device`).
+    """Host-side build (float64 design, float32 tensors on `device`: the
+    current CUDA device unless one is given, `device.default_device`).
     `freq_offset_hz` is the receiver's offset in the IQ span; passband
     defaults follow the mode unless explicit cuts are given."""
+    device = default_device(device)
     if low_cut is None or high_cut is None:
         lc, hc = passband.supersdr_passband(cfg.mode, delta_low, delta_high)
     else:
@@ -242,6 +245,8 @@ def make_params(cfg: ChainConfig,
 
 def init_state(cfg: ChainConfig, batch_shape: tuple[int, ...] = (),
                device=None) -> ChainState:
+    """Zero stream state on `device` (default: the current CUDA device)."""
+    device = default_device(device)
     if cfg.is_rational:
         icarry = torch.zeros(batch_shape + (cfg.rational_plan.history,),
                              dtype=torch.float32, device=device)

@@ -38,6 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from supersdr_tpu_torch.device import default_device
 from supersdr_tpu_torch.ops import channelizer, cx, fir_matmul
 from supersdr_tpu_torch.ops.cuda import channelize_fused, pfb_fold
 from supersdr_tpu_torch.runtime import chain
@@ -162,7 +163,9 @@ def make_params(cfg: WidebandConfig, device=None,
                 **chain_kwargs) -> WidebandParams:
     """The PFB weights and the chain's parameters. The channels are
     centred already and the chain's NCO is compiled out, so its (unused)
-    tuning is built for offset 0 alone, not one row per channel."""
+    tuning is built for offset 0 alone, not one row per channel. On
+    `device`: the current CUDA device unless one is given."""
+    device = default_device(device)
     plan, proto = channelizer.design(cfg.n_chan, cfg.taps_per)
     return WidebandParams(
         W_pfb=channelizer.taps_matrix(plan, proto, device=device),
@@ -171,6 +174,8 @@ def make_params(cfg: WidebandConfig, device=None,
 
 
 def init_state(cfg: WidebandConfig, device=None) -> WidebandState:
+    """Zero stream state on `device` (default: the current CUDA device)."""
+    device = default_device(device)
     return WidebandState(
         pfb_carry=channelizer.init_carry(pfb_plan(cfg), device=device),
         chain=chain.init_state(cfg.chain_cfg, (cfg.n_chan,), device=device))

@@ -129,8 +129,9 @@ def _run_both(kw, batch, pkw, seed=3):
     offs = np.linspace(-300.0, 300.0, int(np.prod(batch))).reshape(batch) \
         if batch else 120.0
     jp = jchain.make_params(jcfg, freq_offset_hz=offs, **pkw)
-    tp = tchain.make_params(tcfg, freq_offset_hz=offs, **pkw)
-    js, ts = jchain.init_state(jcfg, batch), tchain.init_state(tcfg, batch)
+    tp = tchain.make_params(tcfg, freq_offset_hz=offs, **pkw, device="cpu")
+    js = jchain.init_state(jcfg, batch)
+    ts = tchain.init_state(tcfg, batch, device="cpu")
     iq = _iq(batch, N_CHUNKS * jcfg.chunk, jcfg.iq_rate, jcfg.mode, seed)
     outs = []
     for k in range(N_CHUNKS):
@@ -173,10 +174,11 @@ def test_multi_runtime_modes_match_reference():
                                 agc_kwargs=ag)
              for m, lc, hc, f, ag in slots]
     jp = jdualrx._stack_params(plist, [s[0] for s in slots])
-    tp = convert.chain_params_from_jax(jp)
+    tp = convert.chain_params_from_jax(jp, device="cpu")
     assert tp.mode_id.dtype == torch.int32
     iq = _iq((2,), N_CHUNKS * jcfg.chunk, jcfg.iq_rate, "AM", 9)
-    js, ts = jchain.init_state(jcfg, (2,)), tchain.init_state(tcfg, (2,))
+    js = jchain.init_state(jcfg, (2,))
+    ts = tchain.init_state(tcfg, (2,), device="cpu")
     for k in range(N_CHUNKS):
         x = iq[..., k * jcfg.chunk:(k + 1) * jcfg.chunk]
         js, jo = jchain.process(jcfg, jp, js, x)
@@ -196,7 +198,8 @@ def test_run_offline_matches_reference(rate, chunk):
     jcfg, tcfg = jchain.ChainConfig(**kw), tchain.ChainConfig(**kw)
     iq = _iq((), 3 * chunk + 777, rate, "AM", 21)
     _, ja, jr = jchain.run_offline(jcfg, jchain.make_params(jcfg), iq)
-    ts, ta, tr = tchain.run_offline(tcfg, tchain.make_params(tcfg), iq)
+    ts, ta, tr = tchain.run_offline(
+        tcfg, tchain.make_params(tcfg, device="cpu"), iq)
     assert ta.shape == ja.shape
     assert _snr(ja, ta) >= AUDIO_DB
     np.testing.assert_allclose(tr, jr, atol=RSSI_DB)
@@ -236,8 +239,9 @@ def test_make_params_equal_converted_reference(kw):
     """The port's own params equal the reference's carried across by
     `convert`, leaf for leaf (float32, bit for bit)."""
     jp = jchain.make_params(jchain.ChainConfig(**kw), freq_offset_hz=75.0)
-    tp = tchain.make_params(tchain.ChainConfig(**kw), freq_offset_hz=75.0)
-    conv = convert.chain_params_from_jax(jp)
+    tp = tchain.make_params(tchain.ChainConfig(**kw), freq_offset_hz=75.0,
+                            device="cpu")
+    conv = convert.chain_params_from_jax(jp, device="cpu")
     a = jax.tree_util.tree_leaves(convert.to_numpy(tp))
     b = jax.tree_util.tree_leaves(convert.to_numpy(conv))
     assert len(a) == len(b) == len(jax.tree_util.tree_leaves(jp))
@@ -258,15 +262,17 @@ def test_chain_params_and_state_round_trip():
                            iq[..., :jcfg.chunk])
     for tree, conv in ((jp, convert.chain_params_from_jax),
                        (js, convert.chain_state_from_jax)):
-        back = jax.tree_util.tree_leaves(convert.to_numpy(conv(tree)))
+        back = jax.tree_util.tree_leaves(
+            convert.to_numpy(conv(tree, device="cpu")))
         ref = jax.tree_util.tree_leaves(tree)
         assert len(back) == len(ref)
         for a, b in zip(ref, back):
             np.testing.assert_array_equal(np.asarray(a), b)
-    tp = convert.chain_params_from_jax(jp)
+    tp = convert.chain_params_from_jax(jp, device="cpu")
     js2, jo = jchain.process(jcfg, jp, js, iq[..., jcfg.chunk:])
-    ts2, to = tchain.process(tcfg, tp, convert.chain_state_from_jax(js),
-                             iq[..., jcfg.chunk:])
+    ts2, to = tchain.process(
+        tcfg, tp, convert.chain_state_from_jax(js, device="cpu"),
+        iq[..., jcfg.chunk:])
     assert _snr(np.asarray(jo.audio), to.audio.numpy()) >= AUDIO_DB
     _leaves_close(js2, ts2)
     # and the reference resumes the port's state
@@ -282,5 +288,6 @@ def test_chain_params_and_state_round_trip():
 def test_fftmxu_passband_raises():
     cfg = tchain.ChainConfig(**dict(BASE, passband_impl="fftmxu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tchain.process(cfg, tchain.make_params(cfg), tchain.init_state(cfg),
+        tchain.process(cfg, tchain.make_params(cfg, device="cpu"),
+                       tchain.init_state(cfg, device="cpu"),
                        np.zeros(cfg.chunk, np.complex64))

@@ -98,7 +98,7 @@ CASES = [("AM", "fast", "high"), ("AM", "quality", "high"),
 def test_tail_matches_reference_two_calls(mode, tier, rs_prec):
     cfg = _chain_cfg(mode, tier, rs_prec)
     agc_kw = dict(on=False) if mode == "NBFM" else None
-    tp = tchain.make_params(cfg, agc_kwargs=agc_kw)
+    tp = tchain.make_params(cfg, agc_kwargs=agc_kw, device="cpu")
     tile = tchain._tail_tile(NF, N_TAPS)
     B, n_prev = tfm.tail_fir_block(NF, N_TAPS, tile)
     rb = 32 if tile % 32 == 0 else (16 if tile % 16 == 0 else 0)
@@ -177,14 +177,15 @@ def test_tail_params_vec_matches_reference(mode):
     tcfg = tchain.ChainConfig(mode=mode, iq_rate=FS, chunk=NF, os_block=NF,
                               n_taps=N_TAPS, passband_impl="matmul")
     jv = np.asarray(jchain._tail_params_vec(jchain.make_params(jcfg), jcfg))
-    tv = tchain._tail_params_vec(tchain.make_params(tcfg), tcfg).numpy()
+    tv = tchain._tail_params_vec(tchain.make_params(tcfg, device="cpu"),
+                                 tcfg).numpy()
     assert tv.shape == jv.shape == (tct.N_PARAMS,)
     np.testing.assert_array_equal(jv, tv)
 
 
 def test_tail_wrapper_rejects_bad_inputs():
     cfg = _chain_cfg("AM", "quality", "high")
-    tp = tchain.make_params(cfg)
+    tp = tchain.make_params(cfg, device="cpu")
     tile = tchain._tail_tile(NF, N_TAPS)
     B, n_prev = tfm.tail_fir_block(NF, N_TAPS, tile)
     x = torch.zeros(N1, NF, N2)
@@ -242,7 +243,7 @@ def test_tail_am_matches_reference_two_calls(mode, accum, tiles):
     cfg = tchain.ChainConfig(mode=mode, iq_rate=FS, chunk=NF, os_block=NF,
                              n_taps=N_TAPS)
     tp = tchain.make_params(cfg, agc_kwargs=dict(on=mode != "NBFM",
-                                                 hang=True))
+                                                 hang=True), device="cpu")
     par = tchain._tail_params_vec(tp, cfg)
     assert float(par[8]) == 1.0
     P = tp.P_interp
@@ -289,7 +290,7 @@ def test_tail_am_layouts_agree():
     numbers (the kernel reads and writes both by element strides)."""
     cfg = tchain.ChainConfig(mode="AM", iq_rate=FS, chunk=NF, os_block=NF,
                              n_taps=N_TAPS)
-    tp = tchain.make_params(cfg)
+    tp = tchain.make_params(cfg, device="cpu")
     par = tchain._tail_params_vec(tp, cfg)
     yr, yi = _bursty_planes("AM", np.random.default_rng(2), NF, 24)
     st = torch.zeros(4 + tp.P_interp.shape[0], 24)
@@ -315,7 +316,7 @@ def test_fir_tail_hang_matches_reference(hang_on):
     reference's FIR kernel reads the flag from past its 8-slot parameter
     block and does not honour it (ROADMAP queue 3); the port's does."""
     cfg = _chain_cfg("AM", "quality", "high")
-    tp = tchain.make_params(cfg, agc_kwargs=dict(hang=hang_on))
+    tp = tchain.make_params(cfg, agc_kwargs=dict(hang=hang_on), device="cpu")
     tile = tchain._tail_tile(NF, N_TAPS)
     B, n_prev = tfm.tail_fir_block(NF, N_TAPS, tile)
     rb = 32 if tile % 32 == 0 else (16 if tile % 16 == 0 else 0)
@@ -355,7 +356,7 @@ def test_fir_tail_hang_matches_reference(hang_on):
 def test_tail_am_wrapper_rejects_bad_inputs():
     cfg = tchain.ChainConfig(mode="AM", iq_rate=FS, chunk=NF, os_block=NF,
                              n_taps=N_TAPS)
-    tp = tchain.make_params(cfg)
+    tp = tchain.make_params(cfg, device="cpu")
     par = tchain._tail_params_vec(tp, cfg)
     y = torch.zeros(NF, 16)
     st = torch.zeros(4 + tp.P_interp.shape[0], 16)

@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from supersdr_tpu_torch import _build
+from supersdr_tpu_torch import _build, convert, device
 from supersdr_tpu_torch.ops import channelizer, cx
 from supersdr_tpu_torch.ops.cuda import chain_tail, channelize_fused
+from supersdr_tpu_torch.parallel import mesh, sharded_chain
 from supersdr_tpu_torch.runtime import chain, wideband
 
 REPO = Path(__file__).resolve().parents[1]
@@ -30,7 +31,7 @@ REPO = Path(__file__).resolve().parents[1]
     "supersdr_tpu_torch.parallel.mesh",
     "supersdr_tpu_torch.parallel.collectives",
     "supersdr_tpu_torch.parallel.sharded_chain",
-    "supersdr_tpu_torch.parallel.comm_model"])
+    "supersdr_tpu_torch.parallel.comm_model", "supersdr_tpu_torch.device"])
 def test_imports_without_jax(module):
     """Nothing of JAX, and nothing of the JAX package either."""
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
@@ -46,13 +47,14 @@ def test_wrappers_take_plain_path_on_cpu_without_counting():
     cfg = wideband.WidebandConfig(fs_in=512 * 12_000, n_chan=512,
                                   chunk_in=512 * 512, taps_per=4,
                                   n_taps=129, **wideband.PROFILES["fast"])
-    p = wideband.make_params(cfg)
+    p = wideband.make_params(cfg, device="cpu")
     c0 = channelize_fused.channelize_fused_raw3.launches
     t0 = chain_tail.chain_tail_fir.launches
     rng = np.random.default_rng(0)
     iq = (rng.normal(size=cfg.chunk_in)
           + 1j * rng.normal(size=cfg.chunk_in)).astype(np.complex64) * 0.05
-    _, outs = wideband.process_n(cfg, p, wideband.init_state(cfg), [iq])
+    _, outs = wideband.process_n(
+        cfg, p, wideband.init_state(cfg, device="cpu"), [iq])
     assert outs[0].device.type == "cpu"
     assert bool(torch.isfinite(outs[0]).all())
     assert channelize_fused.channelize_fused_raw3.launches == c0
@@ -119,7 +121,81 @@ def test_package_and_smoke_script_name_no_jax_module():
 
 def test_chain_state_matches_tail_rows():
     ccfg = chain.ChainConfig(chunk=512, os_block=512, n_taps=129)
-    st = chain.init_state(ccfg, (256,))
+    st = chain.init_state(ccfg, (256,), device="cpu")
     assert st.os_carry.re.shape == (256, 128)
     assert st.interp_carry.shape == (256, ccfg.interp_plan.per - 1)
     assert float(st.agc.peak_db[0]) == -120.0
+
+
+_SMALL_WB = dict(fs_in=512 * 12_000, n_chan=512, chunk_in=512 * 512,
+                 taps_per=4, n_taps=129)
+_SMALL_CHAIN = dict(chunk=512, os_block=512, n_taps=129)
+
+
+def _wb_cfg():
+    return wideband.WidebandConfig(**_SMALL_WB, **wideband.PROFILES["fast"])
+
+
+def _numpy_params(kind):
+    """A port structure with numpy leaves: what `*_from_jax` is handed
+    (any structure of the reference's field names with array leaves)."""
+    ccfg = chain.ChainConfig(**_SMALL_CHAIN)
+    return convert.to_numpy({
+        "chain_params": lambda: chain.make_params(ccfg, device="cpu"),
+        "chain_state": lambda: chain.init_state(ccfg, (2,), device="cpu"),
+        "params": lambda: wideband.make_params(_wb_cfg(), device="cpu"),
+        "state": lambda: wideband.init_state(_wb_cfg(), device="cpu"),
+    }[kind]())
+
+
+# every public constructor that takes `device=None`, as a call of one
+# argument: the device
+CONSTRUCTORS = {
+    "wideband.make_params": lambda d: wideband.make_params(
+        _wb_cfg(), device=d).W_pfb,
+    "wideband.init_state": lambda d: wideband.init_state(
+        _wb_cfg(), device=d).pfb_carry.re,
+    "chain.make_params": lambda d: chain.make_params(
+        chain.ChainConfig(**_SMALL_CHAIN), device=d).P_interp,
+    "chain.init_state": lambda d: chain.init_state(
+        chain.ChainConfig(**_SMALL_CHAIN), (2,), device=d).phase,
+    "sharded_chain.make_params": lambda d: sharded_chain.make_params(
+        chain.ChainConfig(**_SMALL_CHAIN), 2, device=d).P_interp,
+    "sharded_chain.init_state": lambda d: sharded_chain.init_state(
+        chain.ChainConfig(**_SMALL_CHAIN), 2, device=d).phase,
+    "mesh.make_mesh": lambda d: mesh.make_mesh(1, 4, device=d),
+    "mesh.time_mesh": lambda d: mesh.time_mesh(4, device=d),
+    "convert.chain_params_from_jax": lambda d: convert.chain_params_from_jax(
+        _numpy_params("chain_params"), device=d).P_interp,
+    "convert.chain_state_from_jax": lambda d: convert.chain_state_from_jax(
+        _numpy_params("chain_state"), device=d).phase,
+    "convert.params_from_jax": lambda d: convert.params_from_jax(
+        _numpy_params("params"), device=d).W_pfb,
+    "convert.state_from_jax": lambda d: convert.state_from_jax(
+        _numpy_params("state"), device=d).pfb_carry.re,
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONSTRUCTORS))
+def test_constructors_raise_without_a_card_and_run_on_the_cpu(name,
+                                                              monkeypatch):
+    """With no CUDA device a constructor given no device raises and names
+    the way out; with device="cpu" it builds on the CPU. No silent CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make = CONSTRUCTORS[name]
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        make(None)
+    got = make("cpu")
+    assert torch.device(got.device).type == "cpu"
+
+
+def test_default_device_is_the_current_card(monkeypatch):
+    """None → the current CUDA device with its index explicit; a given
+    device is kept; `parallel.mesh.default_device` is the same function."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    assert device.default_device() == torch.device("cuda", 3)
+    assert device.default_device("cuda") == torch.device("cuda", 3)
+    assert device.default_device("cuda:1") == torch.device("cuda", 1)
+    assert device.default_device("cpu") == torch.device("cpu")
+    assert mesh.default_device is device.default_device

@@ -94,8 +94,8 @@ def _run_port(cfg_kw, n_chan, grid, iqs, offsets=0.0, halo_impl="rdma",
     m = tmesh.make_mesh(n_chan=grid[0], n_time=grid[1], device="cpu",
                         n_shards=grid[0] * grid[1])
     proc = tsharded.build(cfg, m, halo_impl=halo_impl)
-    p = tsharded.make_params(cfg, n_chan, offsets, **pkw)
-    st = tsharded.init_state(cfg, n_chan)
+    p = tsharded.make_params(cfg, n_chan, offsets, **pkw, device="cpu")
+    st = tsharded.init_state(cfg, n_chan, device="cpu")
     outs = []
     for iq in iqs:
         st, out = proc(p, st, iq)
@@ -109,8 +109,8 @@ def _run_serial(cfg_kw, n_chan, n_time, iqs, offsets=0.0, **pkw):
     cfg = tchain.ChainConfig(**dict(cfg_kw, chunk=cfg_kw["chunk"] * n_time,
                                     os_block=cfg_kw["chunk"]))
     offs = np.broadcast_to(np.asarray(offsets, np.float64), (n_chan,))
-    p = tchain.make_params(cfg, freq_offset_hz=offs, **pkw)
-    st = tchain.init_state(cfg, (n_chan,))
+    p = tchain.make_params(cfg, freq_offset_hz=offs, **pkw, device="cpu")
+    st = tchain.init_state(cfg, (n_chan,), device="cpu")
     outs = []
     for iq in iqs:
         st, out = tchain.process(cfg, p, st, iq)
@@ -298,17 +298,18 @@ def test_build_refuses_what_the_reference_refuses():
     proc = tsharded.build(tchain.ChainConfig(chunk=1024, os_block=1024), m)
     cfg = tchain.ChainConfig(chunk=1024, os_block=1024)
     with pytest.raises(ValueError, match="iq must be"):
-        proc(tsharded.make_params(cfg, 1), tsharded.init_state(cfg, 1),
+        proc(tsharded.make_params(cfg, 1, device="cpu"),
+             tsharded.init_state(cfg, 1, device="cpu"),
              np.zeros((1, 1024 * 3), np.complex64))
 
 
 def test_default_devices_agree_and_a_mismatch_raises():
-    """`build(cfg, make_mesh(...))` with default params runs: mesh, params
-    and state default to one device; params on another device raise."""
+    """`build(cfg, make_mesh(...))` with mesh, params and state on one
+    device runs; params on another device raise."""
     cfg = tchain.ChainConfig(chunk=1024, os_block=1024)
-    m = tmesh.make_mesh(1, 4)
-    p = tsharded.make_params(cfg, 1)
-    st = tsharded.init_state(cfg, 1)
+    m = tmesh.make_mesh(1, 4, device="cpu")
+    p = tsharded.make_params(cfg, 1, device="cpu")
+    st = tsharded.init_state(cfg, 1, device="cpu")
     assert tmesh.default_device(p.P_interp.device) == m.device
     assert tmesh.default_device(st.phase.device) == m.device
     _, out = tsharded.build(cfg, m)(p, st, make_iq(1024 * 4))

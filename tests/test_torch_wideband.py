@@ -101,8 +101,8 @@ def jax_runs():
 
 def _port(mode, tier, iq, state=None):
     cfg = twb.WidebandConfig(**BASE, mode=mode, **twb.PROFILES[tier])
-    p = twb.make_params(cfg, **_kw(mode))
-    st = twb.init_state(cfg) if state is None else state
+    p = twb.make_params(cfg, **_kw(mode), device="cpu")
+    st = twb.init_state(cfg, device="cpu") if state is None else state
     order = twb.audio_channel_order(cfg)
     st_n, outs = twb.process_n(cfg, p, st, list(iq))
     rssi = []
@@ -146,9 +146,9 @@ def test_process_n_against_plain_path_oracle(tier):
 @pytest.mark.parametrize("tier", ["fast", "quality"])
 def test_process_i16_equals_dequantized_f32(tier):
     cfg = twb.WidebandConfig(**BASE, mode="AM", **twb.PROFILES[tier])
-    p = twb.make_params(cfg)
+    p = twb.make_params(cfg, device="cpu")
     rng = np.random.default_rng(41)
-    st_a = st_b = twb.init_state(cfg)
+    st_a = st_b = twb.init_state(cfg, device="cpu")
     for _ in range(2):
         re16 = (rng.normal(size=cfg.chunk_in) * 1600).astype(np.int16)
         im16 = (rng.normal(size=cfg.chunk_in) * 1600).astype(np.int16)
@@ -165,17 +165,18 @@ def test_state_carries_across_packages(jax_runs):
     port state after chunk 0 resumes in the JAX package."""
     ref = jax_runs("AM", "quality")
     cfg = twb.WidebandConfig(**BASE, mode="AM", **twb.PROFILES["quality"])
-    p = twb.make_params(cfg)
+    p = twb.make_params(cfg, device="cpu")
     order = twb.audio_channel_order(cfg)
     # JAX → port
-    st = convert.state_from_jax(ref["states"][0])
+    st = convert.state_from_jax(ref["states"][0], device="cpu")
     _, out = twb.process(cfg, p, st, ref["iq"][1])
     assert _snr(ref["audio"][1], _to_bin(out.audio, order)) \
         >= SNR_MIN["quality"]
     np.testing.assert_allclose(out.rssi.numpy()[np.argsort(order)],
                                ref["rssi"][1], atol=0.05)
     # port → JAX
-    st0, out0 = twb.process(cfg, p, twb.init_state(cfg), ref["iq"][0])
+    st0, out0 = twb.process(cfg, p, twb.init_state(cfg, device="cpu"),
+                            ref["iq"][0])
     _, out1 = twb.process(cfg, p, st0, ref["iq"][1])
     leaves = jax.tree_util.tree_leaves(convert.to_numpy(st0))
     jst = jax.tree_util.tree_unflatten(
@@ -190,7 +191,7 @@ def test_state_layout_matches_reference():
     jcfg = jwb.WidebandConfig(**BASE, **jwb.PROFILES["fast"])
     tcfg = twb.WidebandConfig(**BASE, **twb.PROFILES["fast"])
     js = jwb.init_state(jcfg)
-    ts = convert.to_numpy(twb.init_state(tcfg))
+    ts = convert.to_numpy(twb.init_state(tcfg, device="cpu"))
     jl, jt = jax.tree_util.tree_flatten(js)
     tl = jax.tree_util.tree_leaves(ts)
     assert len(jl) == len(tl)
@@ -203,8 +204,8 @@ def test_state_layout_matches_reference():
 def test_make_params_matches_params_from_jax(mode):
     jcfg = jwb.WidebandConfig(**BASE, mode=mode, **jwb.PROFILES["quality"])
     tcfg = twb.WidebandConfig(**BASE, mode=mode, **twb.PROFILES["quality"])
-    conv = convert.params_from_jax(jwb.make_params(jcfg))
-    own = twb.make_params(tcfg)
+    conv = convert.params_from_jax(jwb.make_params(jcfg), device="cpu")
+    own = twb.make_params(tcfg, device="cpu")
     for a, b in ((own.W_pfb, conv.W_pfb),
                  (own.chain.W_tailpass, conv.chain.W_tailpass),
                  (own.chain.P_interp, conv.chain.P_interp)):
@@ -228,7 +229,8 @@ def test_outside_the_slice_raises(extra):
     holds it against the reference)."""
     cfg = twb.WidebandConfig(**{**BASE, **extra})
     assert not twb._planar_active(cfg)
-    args = (cfg, twb.make_params(cfg), twb.init_state(cfg),
+    args = (cfg, twb.make_params(cfg, device="cpu"),
+            twb.init_state(cfg, device="cpu"),
             np.zeros(cfg.chunk_in, np.complex64))
     if extra.get("chan_impl") == "mxu2pallas":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -280,7 +282,7 @@ def test_carriers_land_on_their_rows():
     """AM carriers at channel_freqs(cfg)[r] demodulate into audio row r:
     the two loudest RSSI rows are the carriers' rows."""
     cfg = twb.WidebandConfig(**BASE, mode="AM", **twb.PROFILES["fast"])
-    p = twb.make_params(cfg)
+    p = twb.make_params(cfg, device="cpu")
     freqs = twb.channel_freqs(cfg)
     rng = np.random.default_rng(31)
     rows = [7, 300]
@@ -290,7 +292,7 @@ def test_carriers_land_on_their_rows():
     for r in rows:
         z = z + 0.5 * (1 + 0.5 * np.sin(2 * np.pi * 700 * t)) \
             * np.exp(2j * np.pi * freqs[r] * t)
-    st = twb.init_state(cfg)
+    st = twb.init_state(cfg, device="cpu")
     for _ in range(2):
         st, out = twb.process(cfg, p, st, z.astype(np.complex64))
     top = set(np.argsort(out.rssi.numpy()[:, 0])[::-1][:2])
@@ -299,7 +301,7 @@ def test_carriers_land_on_their_rows():
 
 def test_float_pair_is_rejected():
     cfg = twb.WidebandConfig(**BASE, **twb.PROFILES["fast"])
-    p = twb.make_params(cfg)
+    p = twb.make_params(cfg, device="cpu")
     re = np.zeros(cfg.chunk_in, np.float32)
     with pytest.raises(TypeError, match="int16"):
-        twb.process(cfg, p, twb.init_state(cfg), (re, re))
+        twb.process(cfg, p, twb.init_state(cfg, device="cpu"), (re, re))

@@ -66,8 +66,9 @@ def _compare(kw, iq, pkw=None, bound=AUDIO_DB, rssi_atol=0.01):
     jcfg, tcfg = jwb.WidebandConfig(**kw), twb.WidebandConfig(**kw)
     assert twb._planar_active(tcfg) == jwb._planar_active(jcfg)
     assert twb._tmajor_fused_ok(tcfg) == jwb._tmajor_fused_ok(jcfg)
-    jp, tp = jwb.make_params(jcfg, **pkw), twb.make_params(tcfg, **pkw)
-    js, ts = jwb.init_state(jcfg), twb.init_state(tcfg)
+    jp = jwb.make_params(jcfg, **pkw)
+    tp = twb.make_params(tcfg, **pkw, device="cpu")
+    js, ts = jwb.init_state(jcfg), twb.init_state(tcfg, device="cpu")
     jo_ord = jwb.audio_channel_order(jcfg)
     to_ord = twb.audio_channel_order(tcfg)
     for k in range(iq.shape[0]):
@@ -158,10 +159,11 @@ def test_planar_hang_and_squelch_match_reference(extra, pkw):
 
 def test_process_many_stacks_process_n():
     cfg = twb.WidebandConfig(**C256, pallas_fold=True, tail_impl="pallas")
-    p = twb.make_params(cfg)
+    p = twb.make_params(cfg, device="cpu")
     iq = _iq(2, cfg.chunk_in, seed=4)
-    _, many = twb.process_many(cfg, p, twb.init_state(cfg), iq)
-    _, outs = twb.process_n(cfg, p, twb.init_state(cfg), list(iq))
+    st = twb.init_state(cfg, device="cpu")
+    _, many = twb.process_many(cfg, p, st, iq)
+    _, outs = twb.process_n(cfg, p, st, list(iq))
     assert many.shape == (2, cfg.n_chan, cfg.chunk_per_chan * 4)
     assert torch.equal(many, torch.stack(outs))
 
@@ -189,12 +191,13 @@ def test_wideband_params_round_trip():
     js, _ = jwb.process(jcfg, jp, jwb.init_state(jcfg), iq[0])
     for tree, conv in ((jp, convert.params_from_jax),
                        (js, convert.state_from_jax)):
-        back = jax.tree_util.tree_leaves(convert.to_numpy(conv(tree)))
+        back = jax.tree_util.tree_leaves(
+            convert.to_numpy(conv(tree, device="cpu")))
         ref = jax.tree_util.tree_leaves(tree)
         assert len(back) == len(ref)
         for a, b in zip(ref, back):
             np.testing.assert_array_equal(np.asarray(a), b)
     _, jo = jwb.process(jcfg, jp, js, iq[1])
-    _, to = twb.process(tcfg, convert.params_from_jax(jp),
-                        convert.state_from_jax(js), iq[1])
+    _, to = twb.process(tcfg, convert.params_from_jax(jp, device="cpu"),
+                        convert.state_from_jax(js, device="cpu"), iq[1])
     assert _snr(np.asarray(jo.audio), to.audio.numpy()) >= AUDIO_DB

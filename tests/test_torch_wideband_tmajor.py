@@ -73,8 +73,8 @@ def _run_ref(jcfg, chunks):
 
 
 def _run_port(tcfg, chunks, state=None):
-    p = twb.make_params(tcfg)
-    st = twb.init_state(tcfg) if state is None else state
+    p = twb.make_params(tcfg, device="cpu")
+    st = twb.init_state(tcfg, device="cpu") if state is None else state
     outs = []
     for iq in chunks:
         st, out = twb.process(tcfg, p, st, iq)
@@ -157,8 +157,8 @@ def test_channelizer_time_layout_is_the_bin_ordered_transpose():
     kernel (its raw planes permuted to bin order)."""
     from supersdr_tpu_torch.ops.cuda import channelize_fused as cf
     tcfg = twb.WidebandConfig(**BASE, **twb.PROFILES["quality"])
-    p = twb.make_params(tcfg)
-    st = twb.init_state(tcfg)
+    p = twb.make_params(tcfg, device="cpu")
+    st = twb.init_state(tcfg, device="cpu")
     iq = twb._coerce(_chunks(BASE, "f32")[0], torch.device("cpu"))
     _, (tr, ti) = cf.channelize_fused_c(
         twb.pfb_plan(tcfg), p.W_pfb, st.pfb_carry, iq, factors=(2, 256),
