@@ -57,11 +57,27 @@ Phases, each printed as it runs; any failure exits non-zero:
      that has no in-tail FIR block): launch counts, audio against the
      chan-major tier on the card, ms a chunk, and both kernels against
      their plain versions at that shape, the non-FIR tail on the time-major
-     passband that branch produced.
+     passband that branch produced;
+  9. the sharded wideband pipeline (MESH: `parallel.sharded_wideband.build`
+     at HEADLINE on 8 shards of the card ((20, 128) with 24 planes, 4 of
+     them phantom), 4 ((20, 128)) and 2 (the serial (10, 256)), fast, and on
+     8 quality; two chained calls of two chunks, float32 then int16): one
+     channelizer, one FIR-tail and one halo launch a chunk, the counted
+     traffic equal to `comm_model.wideband_comm_model`, the audio and RSSI
+     rows bit-identical to the serial planar path on the same factoring and
+     within TOL_TIER_DB of the serial quality path; ms a chunk beside serial
+     planar, the idle share and a profile on 8 shards; the channelizer's mesh
+     form (8 shards, n1_out = 24; phantom planes exactly 0) and the FIR tail
+     on the resharded [24, frames, 128] planes against their plain versions
+     (also at MID in phase 3), timed; the time-major and fallback tiers on 8
+     shards at MID against the same calls on the CPU; the distributed FFT
+     against torch.fft.fft, the 2-stage pipeline against the serial
+     wideband, and the dry run of every mesh form on 8 shards.
 Each kernel's line in the JSON summary carries its launches on the main
 paths, its time, its plain version's, its bound on this card (bytes over
 3.35 TB/s against operations over the peak rate of their type) and, where
-one PyTorch call computes the same function, that call's time.
+one PyTorch call computes the same function, that call's time; the
+channelizer's and the FIR tail's also their times at the mesh's shapes.
 The last lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. It exits non-zero, printing no result,
 when no CUDA device is present. It imports nothing of JAX.
@@ -108,6 +124,10 @@ TOL_TIER_DB = {"fast": 45.0, "quality": 80.0}
 # the time-major tier off the planar coupling: 16200 frames a chunk, which
 # neither profile's chan_tile_t divides
 TMAJOR = dict(MID, chunk_in=2560 * 16200)
+# the sharded wideband: shard counts on the one card (8: (20, 128) with 24
+# planes; 4: (20, 128); 2: the serial (10, 256)), the MID tiers' count
+MESH_SHARDS = (8, 4, 2)
+MESH_D = 8
 # the reference's hardware shapes for the sharded chain
 SHARDED = dict(mode="AM", iq_rate=12_000, audio_rate=48_000, chunk=1 << 17,
                os_block=1 << 17, n_taps=257, passband_impl="matmul")
@@ -307,20 +327,25 @@ def _chan_case(cfg, params, gen, *, i16: bool, device,
 
 
 def _tail_case(cfg, params, gen, *, device, raw=None, time2d=False,
-               tile: int | None = None):
+               tile: int | None = None, n_real: int | None = None):
     """(wrapper call, plain call) of the FIR tail on raw planes (unless
     given: noise, or for NBFM one FM carrier a channel), random history
     and a fresh state; the config's
     AGC hang window when it has one. time2d: the 2-D time-major source,
     float32 planes [nf, C] read as one plane of C columns. tile: the
-    tail tile (the peak segment) in place of the config's."""
+    tail tile (the peak segment) in place of the config's. Given raw
+    planes [n1, nf, n2] set the channel count; channels from n_real on are
+    the mesh's phantom rows: zero history and zero state, as the sharded
+    wideband pads them."""
     from supersdr_tpu_torch.ops import fir_matmul
     from supersdr_tpu_torch.ops.cuda import chain_tail as ct
     from supersdr_tpu_torch.runtime import chain
     from supersdr_tpu_torch.runtime import wideband as wb
     ccfg = cfg.chain_cfg
     n1, n2 = (1, cfg.n_chan) if time2d else wb._factors_for(cfg)
-    nf, C, ov = ccfg.chunk, cfg.n_chan, cfg.n_taps - 1
+    if raw is not None and not time2d:
+        n1, n2 = raw[0].shape[0], raw[0].shape[2]
+    nf, C, ov = ccfg.chunk, n1 * n2, cfg.n_taps - 1
     PER = ccfg.interp_plan.per
     fast = cfg.passband_precision == "default"
     if raw is None:
@@ -341,6 +366,10 @@ def _tail_case(cfg, params, gen, *, device, raw=None, time2d=False,
             for _ in range(2)]
     st = torch.zeros(4 + PER, C, device=device)
     st[2] = -120.0
+    if n_real is not None:
+        for h in head:
+            h[:, n_real:] = 0.0
+        st[2, n_real:] = 0.0
     tile = tile or chain._tail_tile(ccfg.chunk, ccfg.n_taps)
     B, n_prev = fir_matmul.tail_fir_block(ccfg.chunk, ccfg.n_taps, tile)
     args = (*raw, *head, st, chain._tail_params_vec(params.chain, ccfg),
@@ -372,6 +401,76 @@ def _fold_case(cfg, params, gen, *, device, nf: int | None = None,
     return (lambda: (torch.view_as_real(pf.pfb_fold(plan, G, carry, x)),),
             lambda: (torch.view_as_real(pf.pfb_fold_plain(
                 G, carry.re, carry.im, x.re, x.im)),))
+
+
+def _mesh_chan_case(cfg, params, gen, *, device, D: int = MESH_D,
+                    i16: bool = False):
+    """(wrapper call, plain call) of the channelizer's mesh form: D time
+    shards of the config's chunk, each with a random history head, at the
+    factoring the sharded wideband picks for D shards (at 2560 channels and
+    8 shards (20, 128) with 24 planes, 4 of them phantom)."""
+    from supersdr_tpu_torch.ops import cx
+    from supersdr_tpu_torch.ops.cuda import channelize_fused as cf
+    from supersdr_tpu_torch.parallel import sharded_wideband as sw
+    from supersdr_tpu_torch.runtime import wideband as wb
+    plan = wb.pfb_plan(cfg)
+    n1, n2, n1_pad = sw.plan_mesh(cfg, D).factors
+    n = cfg.chunk_in // D
+    if i16:
+        x = tuple((torch.randn(D, n, generator=gen, device=device) * 1600
+                   ).round().to(torch.int16) for _ in range(2))
+    else:
+        x = cx.CX(*(torch.randn(D, n, generator=gen, device=device) * 0.05
+                    for _ in range(2)))
+    carry = cx.CX(*(torch.randn(D, plan.history, generator=gen,
+                                device=device) * 0.05 for _ in range(2)))
+    fast = cfg.chan_precision == "default"
+    kw = dict(factors=(n1, n2), bf16_mxu=fast,
+              out_dtype=torch.bfloat16 if fast else torch.float32)
+
+    def kernel():
+        return cf.channelize_fused_c(plan, params.W_pfb, carry, x,
+                                     n1_pad=n1_pad, **kw)[1]
+
+    def plain():
+        args, pkw = cf.prepare(plan, params.W_pfb, carry, *x, **kw)
+        return cf.channelize_fused_plain(*args, **pkw, n1_out=n1_pad)
+    return kernel, plain, (n1, n2, n1_pad)
+
+
+def _mesh_kernel_cases(cfg, params, gen, *, device, err: dict,
+                       label: str) -> tuple:
+    """The channelizer's mesh form against its plain version (phantom
+    planes exactly 0), then the FIR tail on the planes the all_to_all
+    makes of its output, [n1_pad, frames, n2], the phantom rows on zero
+    history and state: against its plain version, every output finite.
+    Returns the (kernel, plain) calls of both, for timing."""
+    from supersdr_tpu_torch.parallel import collectives
+    prof = "fast" if cfg.chan_precision == "default" else "quality"
+    kernel, plain, (n1, n2, n1_pad) = _mesh_chan_case(cfg, params, gen,
+                                                      device=device)
+    _compare("channelize_fused", f"{label} {prof} mesh D={MESH_D} "
+             f"({n1}, {n2}) n1_out={n1_pad}", kernel, plain,
+             TOL_SNR_DB["chan_" + prof], device, err)
+    out = kernel()
+    phantom = max(float(p[:, n1:].float().abs().max()) for p in out)
+    print(f"kernel channelize_fused {label} {prof} mesh: phantom planes "
+          f"max |x| {phantom}", flush=True)
+    if phantom != 0.0:
+        raise AssertionError("the channelizer's phantom planes are not 0")
+    raw = [collectives.all_to_all(p, 0, 1).reshape(n1_pad, -1, n2)
+           for p in out]
+    del out
+    tk, tp = _tail_case(cfg, params, gen, device=device, raw=raw,
+                        n_real=cfg.n_chan)
+    _compare("chain_tail", f"{label} {prof} mesh [{n1_pad}, "
+             f"{raw[0].shape[1]}, {n2}] planes", tk, tp, TOL_SNR_DB["tail"],
+             device, err)
+    got = tk()
+    if not all(bool(torch.isfinite(g).all()) for g in got):
+        raise AssertionError("the FIR tail is not finite on the phantom "
+                             "rows")
+    return (kernel, plain), (tk, tp)
 
 
 def _fm_carriers(C: int, nf: int, gen, device) -> torch.Tensor:
@@ -497,6 +596,14 @@ def phase_kernels(shape: dict, device, err: dict, seed: int = 7) -> None:
                          *_chan_case(fcfg, fparams, gen, i16=i16,
                                      device=device, layout=layout),
                          TOL_SNR_DB["chan_" + prof], device, err)
+        # the mesh form: 8 time shards, (20, 128) with 4 phantom planes,
+        # float32 and int16 input; the FIR tail on the resharded planes
+        _mesh_kernel_cases(cfg, params, gen, device=device, err=err,
+                           label="MID")
+        k16, p16, _ = _mesh_chan_case(cfg, params, gen, device=device,
+                                      i16=True)
+        _compare("channelize_fused", f"MID {prof} mesh D={MESH_D} i16", k16,
+                 p16, TOL_SNR_DB["chan_" + prof], device, err)
     ragged = dict(shape, chunk_in=shape["n_chan"] * 640)
     cases = [(shape, c) for c in TAIL_CASES] + [
         (ragged, ("fast", "AM", None)), (ragged, ("quality", "USB", None))]
@@ -1299,34 +1406,302 @@ def phase_tmajor(device, err: dict, planar_ms: dict, iters: int = 5,
     return {"launches": total, "times": times}
 
 
+def _by_bin(audio: torch.Tensor, order) -> torch.Tensor:
+    """Time-major audio [T·L, C] with its columns in PFB bin order."""
+    inv = torch.as_tensor(np.argsort(np.asarray(order)), device=audio.device)
+    return audio.index_select(1, inv)
+
+
+def phase_mesh(device, err: dict, iters: int = 5, seed: int = 12) -> dict:
+    """The sharded wideband (MESH) at HEADLINE on 8, 4 and 2 shards of the
+    card (fast; quality on 8): two chained process_n calls, the first on
+    two float32 chunks, the second on two int16 chunks. A chunk launches
+    the channelizer, the FIR tail and the halo kernel once each; the
+    counted traffic is the comm model's. The audio, by PFB bin, is the
+    serial planar path's on the same factoring bit for bit (2 shards: the
+    serial factoring; 4 and 8: chan_factors=(20, 128)), and so are the RSSI
+    rows; and it is within TOL_TIER_DB of the serial quality path (float32
+    operands, ~108 dB from the plain float32 version): the fast mesh's
+    own bf16 error. Against the serial fast path on its own factoring the
+    SNR is printed too: two bf16 computations rounded at other places, each
+    ~47 dB from float32 in steady state, differ by ~44.5 dB (the AGC turns
+    a rounding difference at a noise peak into a gain difference; CPU
+    model at MID), so that pair is not held to the fast bound. Then ms a
+    chunk beside serial planar, the device's idle share and where its time
+    goes on 8 shards, and the mesh kernels against their plain versions at
+    this shape, timed."""
+    from supersdr_tpu_torch.parallel import collectives, comm_model
+    from supersdr_tpu_torch.parallel import sharded_wideband as sw
+    from supersdr_tpu_torch.runtime import wideband as wb
+    gen = torch.Generator(device=device).manual_seed(seed)
+    total = {k: 0 for k in _wrappers()}
+    times = {}
+    want = {**total, "channelize_fused": 2, "chain_tail": 2, "halo": 2}
+    f32, i16 = _headline_inputs(wb.WidebandConfig(**HEADLINE), gen, device)
+    calls = (("f32", f32), ("i16", i16))
+    serial = {}
+
+    def reference(prof, factors=None):
+        """The serial planar path on the calls (chan_factors `factors`):
+        per call, the audio of each chunk and the RSSI rows of the last,
+        by PFB bin."""
+        if (prof, factors) not in serial:
+            cfg = wb.WidebandConfig(**HEADLINE, chan_factors=factors,
+                                    **wb.PROFILES[prof])
+            params = wb.make_params(cfg, device=device)
+            order = wb.audio_channel_order(cfg)
+            st, runs = wb.init_state(cfg, device=device), []
+            for _, chunks in calls:
+                outs = []
+                for c in chunks:
+                    st, o = wb.process(cfg, params, st, c)
+                    outs.append(_by_bin(o.audio, order))
+                runs.append((outs, o.rssi[np.argsort(order)]))
+            serial[prof, factors] = runs
+        return serial[prof, factors]
+
+    for prof, shards in (("fast", MESH_SHARDS), ("quality", (MESH_D,))):
+        cfg = wb.WidebandConfig(**HEADLINE, **wb.PROFILES[prof])
+        params = wb.make_params(cfg, device=device)
+        for d in shards:
+            proc = sw.build(cfg, sw.make_mesh(d, device))
+            n1, n2, _ = proc.planar_factors
+            same_fac = reference(prof, None if d == 2 else (n1, n2))
+            accurate = reference("quality")
+            own = reference(prof)
+            st = wb.init_state(cfg, device=device)
+            for c, (kind, chunks) in enumerate(calls):
+                _reset_counts()
+                collectives.traffic.reset()
+                st, outs, rssi = proc.process_n(params, st, chunks)
+                _sync(device)
+                launches = _counts()
+                moved = collectives.traffic.total_bytes
+                model = comm_model.wideband_comm_model(
+                    cfg, d, i16=kind == "i16")["total_bytes"] * len(chunks)
+                for k, v in launches.items():
+                    total[k] += v
+                same, snr_acc, snr_own = True, [], []
+                for k, a in enumerate(outs):
+                    got = _by_bin(a, proc.channel_order)
+                    same = same and torch.equal(got, same_fac[c][0][k])
+                    snr_acc.append(_snr_db(accurate[c][0][k], got))
+                    snr_own.append(_snr_db(own[c][0][k], got))
+                finite = all(bool(torch.isfinite(a).all()) for a in outs)
+                r_err = float((rssi[np.argsort(proc.channel_order)]
+                               - same_fac[c][1]).abs().max())
+                print(f"mesh {prof} {d} shards {proc.planar_factors} {kind}: "
+                      f"launches {launches} for {len(chunks)} chunks; "
+                      f"traffic {moved} bytes (model {model}); audio "
+                      f"{tuple(outs[0].shape)} finite={finite}; bit-identical"
+                      f" to serial planar on ({n1}, {n2}) {same}, RSSI max "
+                      f"|diff| {r_err:.2e} dB; snr vs serial quality "
+                      f"{' / '.join(f'{x:.2f}' for x in snr_acc)} dB (tol "
+                      f"{TOL_TIER_DB[prof]} dB), vs serial {prof} "
+                      f"{' / '.join(f'{x:.2f}' for x in snr_own)} dB",
+                      flush=True)
+                if launches != want or moved != model or not finite \
+                        or not same or r_err > 0.05 \
+                        or not min(snr_acc) >= TOL_TIER_DB[prof]:
+                    raise AssertionError(f"mesh {prof} {d} shards {kind} "
+                                         f"failed")
+                del outs
+    serial.clear()
+    torch.cuda.empty_cache()
+    for prof, shards in (("fast", MESH_SHARDS), ("quality", (MESH_D,))):
+        cfg = wb.WidebandConfig(**HEADLINE, **wb.PROFILES[prof])
+        params = wb.make_params(cfg, device=device)
+        # ms a chunk beside serial planar, float32 (int16 on 8 shards)
+        hold = {}
+        steps = {}
+        for d in shards:
+            proc = sw.build(cfg, sw.make_mesh(d, device))
+            for kind, chunks in calls:
+                if kind == "i16" and d != MESH_D:
+                    continue
+                key = f"mesh{d}_{kind}"
+                hold[key] = wb.init_state(cfg, device=device)
+
+                def step(proc=proc, chunks=chunks, key=key):
+                    hold[key], outs, _ = proc.process_n(params, hold[key],
+                                                        chunks)
+                    return outs[-1].abs().mean()
+                steps[key] = step
+        hold["serial"] = wb.init_state(cfg, device=device)
+
+        def serial_step():
+            hold["serial"], outs = wb.process_n(cfg, params, hold["serial"],
+                                                f32)
+            return outs[-1].abs().mean()
+        steps["serial_f32"] = serial_step
+        # two rounds, the second in reverse order (a drift of the card or
+        # of the host shows as a spread); a warm-up call each first
+        for fn in steps.values():
+            fn()
+        got = {key: [] for key in steps}
+        for rnd in range(2):
+            for key in (list(steps) if rnd == 0 else list(steps)[::-1]):
+                got[key].append(cuda_ms(steps[key], iters) / 2)
+        for key, ms in got.items():
+            times[f"mesh_{prof}_{key}"] = sum(ms) / len(ms)
+            print(f"time mesh {prof} {key}: "
+                  f"{' / '.join(f'{m:.3f}' for m in ms)} ms/chunk, "
+                  f"{cfg.chunk_in / (min(ms) * 1e-3) / 1e6:.1f} Msamples/s "
+                  f"input at the faster", flush=True)
+        device_share(f"mesh {prof} {MESH_D} shards f32 (2 chunks a call)",
+                     steps[f"mesh{MESH_D}_f32"], calls=3, rows=12)
+        del steps, hold
+        torch.cuda.empty_cache()
+        # the mesh kernels at this shape, against their plain versions
+        (ck, cp), (tk, tp) = _mesh_kernel_cases(cfg, params, gen,
+                                                device=device, err=err,
+                                                label="HEADLINE")
+        times[f"mesh_channelize_fused_{prof}"] = (cuda_ms(ck, iters),
+                                                  cuda_ms(cp, 2))
+        times[f"mesh_chain_tail_{prof}"] = (cuda_ms(tk, iters),
+                                            cuda_ms(tp, 2))
+        for name in ("channelize_fused", "chain_tail"):
+            k_ms, p_ms = times[f"mesh_{name}_{prof}"]
+            print(f"time {name} {prof} mesh: kernel {k_ms:.3f} ms, plain "
+                  f"{p_ms:.3f} ms", flush=True)
+        del ck, cp, tk, tp
+        torch.cuda.empty_cache()
+    return {"launches": total, "times": times}
+
+
+def phase_mesh_tiers(device, seed: int = 13) -> dict:
+    """The sharded wideband's other tiers at MID on 8 shards, each against
+    the same two chained calls on the CPU (≥ TOL_SNR_DB["cpu"]): the
+    time-major tier (the fast profile with planar_waste_max=0: the
+    channelizer's time store, the all_to_all over channels, the FIR tail
+    on the shards' planes; and with a 33-tap passband: the time-major
+    Toeplitz passband and the non-FIR tail) and the fallback tier
+    (CHANMAJOR: the fold kernel over the shards, the all_to_all, the
+    chain's tail kernel). Launch counts a chunk as the tier's."""
+    from supersdr_tpu_torch.parallel import sharded_wideband as sw
+    from supersdr_tpu_torch.runtime import wideband as wb
+    rng = np.random.default_rng(seed)
+    cpu = torch.device("cpu")
+    total = {k: 0 for k in _wrappers()}
+    cases = (
+        ("tmajor", dict(MID, **wb.PROFILES["fast"]), 0.0,
+         {"channelize_fused": 1, "chain_tail": 1, "halo": 1}),
+        ("tmajor 33 taps", dict(MID, n_taps=33, **wb.PROFILES["quality"]),
+         None, {"channelize_fused": 1, "chain_tail_am": 1, "halo": 1}),
+        ("fallback", dict(MID, **CHANMAJOR), None,
+         {"pfb_fold": 1, "chain_tail_am": 1, "halo": 1}))
+    for label, kw, wmax, per_chunk in cases:
+        cfg = wb.WidebandConfig(**kw)
+        chunks = [((rng.normal(size=cfg.chunk_in)
+                    + 1j * rng.normal(size=cfg.chunk_in)) * 0.05
+                   ).astype(np.complex64) for _ in range(2)]
+        res = {}
+        for key, dev in (("card", device), ("cpu", cpu)):
+            proc = sw.build(cfg, sw.make_mesh(MESH_D, dev),
+                            planar_waste_max=wmax)
+            p = wb.make_params(cfg, device=dev)
+            st = wb.init_state(cfg, device=dev)
+            _reset_counts()
+            audio = []
+            for c in chunks:
+                st, a, _ = proc(p, st, c)
+                audio.append(a.cpu().numpy())
+            _sync(dev)
+            res[key] = (np.stack(audio), _counts(), proc.tier)
+        launches = res["card"][1]
+        want = {**{k: 0 for k in launches},
+                **{k: v * len(chunks) for k, v in per_chunk.items()}}
+        print(f"mesh tier {label} ({res['card'][2]}) MID {MESH_D} shards: "
+              f"launches {launches}", flush=True)
+        if launches != want or res["card"][2] != label.split()[0]:
+            raise AssertionError(f"mesh tier {label} missed a kernel")
+        for k, v in launches.items():
+            total[k] += v
+        _close_to_cpu(f"mesh tier {label} MID", res["card"][0],
+                      res["cpu"][0], TOL_SNR_DB["cpu"])
+    return {"launches": total}
+
+
+def phase_mesh_parts(device, seed: int = 14) -> None:
+    """The other mesh forms on the card: the distributed FFT (8 shards,
+    2^22 points) against torch.fft.fft (≤ 1e-4 of the largest bin), the
+    2-stage pipeline (two MID microbatches, chan-major with the tail
+    kernel) against the serial wideband on the card, and the dry run of
+    every mesh form on 8 shards."""
+    from supersdr_tpu_torch.ops import cx
+    from supersdr_tpu_torch.parallel import dist_fft, dryrun, pipeline
+    from supersdr_tpu_torch.runtime import wideband as wb
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = 1 << 22
+    x = torch.randn(n, generator=gen, device=device, dtype=torch.complex64)
+    y = dist_fft.build_fft(n, dist_fft.make_mesh(MESH_D, device))(x)
+    want = torch.fft.fft(x)
+    rel = float((torch.complex(y.re, y.im) - want).abs().max()
+                / want.abs().max())
+    print(f"dist_fft {MESH_D} shards n={n}: max error {rel:.2e} of the "
+          f"largest bin (tol 1e-4)", flush=True)
+    if not rel <= 1e-4:
+        raise AssertionError("dist_fft disagrees with torch.fft.fft")
+    cfg = wb.WidebandConfig(**dict(MID, time_major=False, tail_impl="pallas",
+                                   passband_impl="fft"))
+    p = wb.make_params(cfg, device=device)
+    mbs = cx.CX(*(torch.randn(2, cfg.chunk_in, generator=gen, device=device)
+                  * 0.05 for _ in range(2)))
+    _reset_counts()
+    _, audio = pipeline.build(cfg, pipeline.make_mesh(device))(
+        p, wb.init_state(cfg, device=device), mbs)
+    launches = _counts()
+    _, outs = wb.process_n(cfg, p, wb.init_state(cfg, device=device),
+                           [cx.CX(mbs.re[i], mbs.im[i]) for i in range(2)])
+    snr = min(_snr_db(o, a) for o, a in zip(outs, audio))
+    print(f"pipeline 2 stages, 2 MID microbatches: audio "
+          f"{tuple(audio.shape)}, launches {launches}, vs serial snr "
+          f"{snr:.2f} dB (tol {TOL_SNR_DB['cpu']} dB)", flush=True)
+    if launches["chain_tail_am"] != 2 or not snr >= TOL_SNR_DB["cpu"]:
+        raise AssertionError("pipeline disagrees with the serial wideband")
+    print(dryrun.dryrun_multichip(MESH_D, device), flush=True)
+
+
 def kernel_bounds(halo_bound: tuple) -> dict:
     """Each kernel's bound at the shape it is timed at (HEADLINE: 2560
     channels × 16128 frames; the fast tier for the channelizer and the FIR
-    tail), from the shapes alone."""
+    tail; "…_mesh": at the mesh's shapes on 8 shards, (20, 128) with 24
+    planes and the FIR tail on 3072 rows), from the shapes alone."""
     from supersdr_tpu_torch.ops import channelizer
+    from supersdr_tpu_torch.parallel import sharded_wideband as sw
     from supersdr_tpu_torch.runtime import wideband as wb
     cfg = wb.WidebandConfig(**HEADLINE, **wb.PROFILES["fast"])
     ccfg = cfg.chain_cfg
     M, K, nf = cfg.n_chan, cfg.taps_per, cfg.chunk_per_chan
-    n1, n2 = channelizer._pick_factors(M)
     per, L = ccfg.interp_plan.per, ccfg.upsample
     ov = cfg.n_taps - 1
     samples = nf * M
+
+    def chan(n1, n2, n1_out, D):
+        # f32 planes and D history heads in, bf16 raw planes out (phantom
+        # planes included); fold and stage A in float32, stage B on bf16
+        # operands
+        return bound_ms(
+            2 * 4 * (samples + D * (K - 1) * M) + 4 * K * M
+            + 8 * n1 * n1 * n2 + 8 * n2 * n2 + 2 * 2 * nf * n1_out * n2,
+            {"fp32": samples * (4 * K + 8 * n1), "bf16": samples * 8 * n2})
+
+    def tail(C):
+        # bf16 raw planes and f32 history in, f32 audio out; real taps on
+        # bf16 operands, the rest in float32
+        n = nf * C
+        return bound_ms(
+            2 * 2 * n + 2 * 4 * ov * C + (4 + per) * C * 4 * 2 + 4 * n * L,
+            {"bf16": n * 4 * cfg.n_taps, "fp32": n * (2 * per * L + 40)})
+    n1, n2 = channelizer._pick_factors(M)
+    m1, m2, m1_pad = sw.plan_mesh(cfg, MESH_D).factors
     state = (4 + per) * M * 4 * 2
     tail_flops = samples * (2 * per * L + 40)   # resampler + the scalar ops
     return {
-        # f32 planes in, bf16 raw planes out; fold and stage A in float32,
-        # stage B on bf16 operands
-        "channelize_fused": bound_ms(
-            2 * 4 * (samples + (K - 1) * M) + 4 * K * M
-            + 8 * n1 * n1 * n2 + 8 * n2 * n2 + 2 * 2 * samples,
-            {"fp32": samples * (4 * K + 8 * n1),
-             "bf16": samples * 8 * n2}),
-        # bf16 raw planes and f32 history in, f32 audio out; real taps on
-        # bf16 operands, the rest in float32
-        "chain_tail": bound_ms(
-            2 * 2 * samples + 2 * 4 * ov * M + state + 4 * samples * L,
-            {"bf16": samples * 4 * cfg.n_taps, "fp32": tail_flops}),
+        "channelize_fused": chan(n1, n2, n1, 1),
+        "chain_tail": tail(M),
+        "channelize_fused_mesh": chan(m1, m2, m1_pad, MESH_D),
+        "chain_tail_mesh": tail(m1_pad * m2),
         "pfb_fold": bound_ms(
             2 * 4 * (samples + (K - 1) * M) + 4 * K * M + 8 * samples,
             {"fp32": samples * 4 * K}),
@@ -1394,15 +1769,26 @@ def main() -> int:
     times.update(phase_halo_timing(dev))
     sharded = phase_sharded(dev)
     tmajor = phase_tmajor(dev, err, planar_ms)
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(dev, err)
+    times.update(mesh["times"])
+    mesh_tiers = phase_mesh_tiers(dev)
+    phase_mesh_parts(dev)
     paths = {"planar": main_path, "chanmajor": chan, "sharded": sharded,
-             "tmajor": tmajor}
+             "tmajor": tmajor, "mesh": mesh, "mesh_tiers": mesh_tiers}
     bounds = kernel_bounds(times["halo_bound"])
     kernels = [
         _summary("channelize_fused", "channelize_fused.cu",
                  "channelize_fused.py:61", paths, err,
-                 times["channelize_fused_fast"], bounds["channelize_fused"]),
+                 times["channelize_fused_fast"], bounds["channelize_fused"],
+                 mesh_ms=times["mesh_channelize_fused_fast"][0],
+                 mesh_plain_ms=times["mesh_channelize_fused_fast"][1],
+                 mesh_bound_ms=bounds["channelize_fused_mesh"][0]),
         _summary("chain_tail", "chain_tail.cu", "chain_tail.py:332", paths,
-                 err, times["chain_tail_fast"], bounds["chain_tail"]),
+                 err, times["chain_tail_fast"], bounds["chain_tail"],
+                 mesh_ms=times["mesh_chain_tail_fast"][0],
+                 mesh_plain_ms=times["mesh_chain_tail_fast"][1],
+                 mesh_bound_ms=bounds["chain_tail_mesh"][0]),
         _summary("pfb_fold", "pfb_fold.cu", "pfb_fold.py:36", paths, err,
                  times["pfb_fold"], bounds["pfb_fold"]),
         _summary("chain_tail_am", "chain_tail.cu", "chain_tail.py:304",

@@ -39,14 +39,15 @@ _L = ctypes.c_long
 SIGNATURES = {
     "channelize_fused_tile": [_I, _I, _I, _I],
     "channelize_fused_raw3": [_P, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P,
-                              _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                              _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _P],
     "chain_tail_channels_per_block": [],
     "chain_tail_fir": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                        _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P],
     "chain_tail_am": [_P, _P, _L, _L, _I, _I, _P, _I, _I, _P, _I, _I, _I,
                       _I, _P, _P, _P, _L, _L, _P],
     "pfb_fold_max_taps": [],
-    "pfb_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "pfb_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "halo_max_shards": [],
     "halo_empty_launch": [_P],
     "halo_push": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,

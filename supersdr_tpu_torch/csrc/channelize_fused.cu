@@ -12,9 +12,18 @@
 // The output is the reference's raw planar layout [n1, nf, n2] (planar
 // channel k1·n2 + k2 is PFB bin k2·n1 + k1), or its out_layout="time",
 // [nf, M] with bin k2·n1 + k1 in column order (the wideband time-major tier
-// off the planar coupling). The layout is a template parameter: output
-// strides passed as kernel arguments slowed the kernel ~5 % at the headline
-// shape on an H100. int16 input is dequantized ×in_scale as it is read.
+// off the planar coupling).
+//
+// The mesh form (the reference's n1_pad, for the time-sharded wideband
+// pipeline): D time shards of nf frames each, x [D, nf, M] and heads
+// [D, K−1, M] (each shard's own history), out [D, n1_out, nf, n2] (or
+// [D, nf, M] for the time store), one launch for every shard. Planes
+// k1 ∈ [n1, n1_out) are exact zeros, so the all_to_all's split axis divides
+// by the shard count. D = 1 with n1_out = n1 is the plain form, bit for bit.
+//
+// The layout is a template parameter: output strides passed as kernel
+// arguments slowed the kernel ~5 % at the headline shape on an H100. int16
+// input is dequantized ×in_scale as it is read.
 //
 // What bounds it on this card: bytes (330 MB read, 165 MB of bf16 written a
 // 2560-channel × 16128-frame chunk: 0.15 ms at 3.35 TB/s). Stage B is an
@@ -24,7 +33,8 @@
 // GFLOP in float32, and 1 MB a block of rows and tables out of L2) are the
 // larger part.
 //
-// Design: one block owns T consecutive frames (T = 8 at 2560 channels) and
+// Design: one block owns T consecutive frames of one shard (blockIdx.y; T = 8
+// at 2560 channels; a tile never straddles two shards) and
 // keeps the stage-A output as the bf16 matrix Y[n1·T rows, Yr | Yi] in
 // shared memory; 256 threads, one block an SM. Blocks read their own K − 1
 // history rows, so they run in any order; frames past nf are masked.
@@ -55,6 +65,11 @@
 //    32-byte sectors of a row). The time-major store stages each warp's
 //    [T, 16·n1] run of consecutive bins in shared memory (the ring's space,
 //    free by then), a plane at a time, and writes 16 bytes a lane.
+//  * Phantom planes: in the epilogue each block writes zeros over its T rows
+//    of every plane past n1, 16 bytes a thread (a block's rows of a plane
+//    are contiguous), so no second pass clears them. The shard count, n1_out
+//    and the shard strides are run-time values (no template instances);
+//    a block adds its shard's offsets where it addresses memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -155,9 +170,18 @@ channelize_mma_kernel(const void* __restrict__ x_re,
                       const float* __restrict__ at_r,
                       const float* __restrict__ at_i,
                       const __nv_bfloat16* __restrict__ ct, void* out_r,
-                      void* out_i, int nf, int M, int K, int n1, int n2) {
+                      void* out_i, int nf, int M, int K, int n1, int n2,
+                      int n1_out) {
   extern __shared__ float4 smem_f4[];
   __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem_f4);
+  using In = typename std::conditional<kI16, int16_t, float>::type;
+  using Out = typename std::conditional<kOutBf16, __nv_bfloat16, float>::type;
+  // this block's shard (x [D, nf, M], heads [D, K−1, M], out per shard),
+  // as element offsets added where the pointers are used
+  const long s_x = (long)blockIdx.y * nf * M;
+  const long s_h = (long)blockIdx.y * (K - 1) * M;
+  const long s_o =
+      (long)blockIdx.y * (kTime ? (long)nf * M : (long)n1_out * nf * n2);
   const int t0 = blockIdx.x * T;
   const int R = n1 * T;
   const int Rpad = y_rows(n1, T);
@@ -198,7 +222,6 @@ channelize_mma_kernel(const void* __restrict__ x_re,
   // rows past the chunk are zero-filled). The first blocks, whose rows
   // reach into the carry head (float32 whatever the input is), read global
   // memory instead.
-  using In = typename std::conditional<kI16, int16_t, float>::type;
   constexpr int kPiece = 16 / (int)sizeof(In);  // elements a 16-byte copy
   In* ring = reinterpret_cast<In*>(ys + NP * ylo);
   const int rows_st = TH + hk;
@@ -210,7 +233,7 @@ channelize_mma_kernel(const void* __restrict__ x_re,
     for (int rw = warp; rw < 2 * rows_st; rw += kWarps) {
       const int pl = rw >= rows_st, row = rw - pl * rows_st;
       const int f = t0 + st.th + row - hk;  // the input frame of this row
-      const In* src = static_cast<const In*>(pl ? x_im : x_re) +
+      const In* src = static_cast<const In*>(pl ? x_im : x_re) + s_x +
                       (f < nf ? (long)f * M + col0 : 0);
       In* dst = ring + buf * tile_elems + (size_t)rw * kThreads;
       for (int c = lane * kPiece; c < cols; c += 32 * kPiece)
@@ -273,10 +296,10 @@ channelize_mma_kernel(const void* __restrict__ x_re,
           sr[v] = to_float<kI16>(xs[v * kThreads], in_scale);
           si[v] = to_float<kI16>(xs[(rows_st + v) * kThreads], in_scale);
         } else if (t0 + th + v < hk) {
-          sr[v] = head_re[(long)(t0 + th + v) * M + r];
-          si[v] = head_im[(long)(t0 + th + v) * M + r];
+          sr[v] = head_re[s_h + (long)(t0 + th + v) * M + r];
+          si[v] = head_im[s_h + (long)(t0 + th + v) * M + r];
         } else if (t0 + th + v - hk < nf) {
-          const long idx = (long)(t0 + th + v - hk) * M + r;
+          const long idx = s_x + (long)(t0 + th + v - hk) * M + r;
           sr[v] = to_float<kI16>(static_cast<const In*>(x_re)[idx], in_scale);
           si[v] = to_float<kI16>(static_cast<const In*>(x_im)[idx], in_scale);
         }
@@ -440,8 +463,8 @@ channelize_mma_kernel(const void* __restrict__ x_re,
           }
           __syncwarp();
         };
-        store_plane(cr, static_cast<float*>(out_r));
-        store_plane(ci, static_cast<float*>(out_i));
+        store_plane(cr, static_cast<float*>(out_r) + s_o);
+        store_plane(ci, static_cast<float*>(out_i) + s_o);
         continue;
       }
 #pragma unroll
@@ -456,7 +479,8 @@ channelize_mma_kernel(const void* __restrict__ x_re,
           if (tg >= nf) continue;
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
-            const long o = ((long)k1 * nf + tg) * n2 + nb + q * 8 + 2 * tig;
+            const long o =
+                s_o + ((long)k1 * nf + tg) * n2 + nb + q * 8 + 2 * tig;
             const float vr0 = cr[m][q][2 * h], vr1 = cr[m][q][2 * h + 1];
             const float vi0 = ci[m][q][2 * h], vi1 = ci[m][q][2 * h + 1];
             if (kOutBf16) {
@@ -474,6 +498,21 @@ channelize_mma_kernel(const void* __restrict__ x_re,
             }
           }
         }
+      }
+    }
+  }
+  // ---- phantom planes k1 ∈ [n1, n1_out): this block's rows, zeros
+  if (!kTime && n1_out > n1) {
+    const int rows = min(T, nf - t0);
+    const long pieces = (long)rows * n2 * (long)sizeof(Out) / 16;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k1 = n1; k1 < n1_out; ++k1) {
+      const long e = s_o + ((long)k1 * nf + t0) * n2;
+      float4* pr = reinterpret_cast<float4*>(static_cast<Out*>(out_r) + e);
+      float4* pi = reinterpret_cast<float4*>(static_cast<Out*>(out_i) + e);
+      for (long i = tid; i < pieces; i += kThreads) {
+        pr[i] = z;
+        pi[i] = z;
       }
     }
   }
@@ -503,17 +542,17 @@ cudaError_t launch_mma(const void* x_re, const void* x_im, float in_scale,
                        const float* head_re, const float* head_im,
                        const float* g2, const float* at_r, const float* at_i,
                        const __nv_bfloat16* ct, void* out_r, void* out_i,
-                       int nf, int M, int K, int n1, int n2,
-                       cudaStream_t stream) {
+                       int nf, int M, int K, int n1, int n2, int n_shards,
+                       int n1_out, cudaStream_t stream) {
   const size_t smem = mma_smem(n1, n2, T, kSplit, kTime);
   auto kern = channelize_mma_kernel<T, kI16, kOutBf16, kTime, kSplit>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (nf + T - 1) / T;
+  const dim3 blocks((nf + T - 1) / T, n_shards);
   kern<<<blocks, kThreads, smem, stream>>>(x_re, x_im, in_scale, head_re,
                                            head_im, g2, at_r, at_i, ct, out_r,
-                                           out_i, nf, M, K, n1, n2);
+                                           out_i, nf, M, K, n1, n2, n1_out);
   return cudaGetLastError();
 }
 
@@ -524,11 +563,12 @@ cudaError_t dispatch_io(int in_i16, int out_bf16, int out_time,
                         const float* head_re, const float* head_im,
                         const float* g2, const float* at_r, const float* at_i,
                         const __nv_bfloat16* ct, void* out_r, void* out_i,
-                        int nf, int M, int K, int n1, int n2, cudaStream_t s) {
+                        int nf, int M, int K, int n1, int n2, int n_shards,
+                        int n1_out, cudaStream_t s) {
 #define SSDR_LAUNCH(I16, BF16, TIME)                                        \
   return launch_mma<T, I16, BF16, TIME, kSplit>(                            \
       x_re, x_im, in_scale, head_re, head_im, g2, at_r, at_i, ct, out_r,    \
-      out_i, nf, M, K, n1, n2, s)
+      out_i, nf, M, K, n1, n2, n_shards, n1_out, s)
   if (out_time) {  // the time-major store writes float32
     if (in_i16) SSDR_LAUNCH(true, false, true);
     SSDR_LAUNCH(false, false, true);
@@ -550,11 +590,13 @@ cudaError_t dispatch_tile(int T, int in_i16, int out_bf16, int out_time,
                           const float* g2, const float* at_r,
                           const float* at_i, const __nv_bfloat16* ct,
                           void* out_r, void* out_i, int nf, int M, int K,
-                          int n1, int n2, cudaStream_t s) {
+                          int n1, int n2, int n_shards, int n1_out,
+                          cudaStream_t s) {
 #define SSDR_TILE(TT)                                                       \
   return dispatch_io<TT, kSplit>(in_i16, out_bf16, out_time, x_re, x_im,    \
                                  in_scale, head_re, head_im, g2, at_r,      \
-                                 at_i, ct, out_r, out_i, nf, M, K, n1, n2, s)
+                                 at_i, ct, out_r, out_i, nf, M, K, n1, n2,  \
+                                 n_shards, n1_out, s)
   switch (T) {
     case 8:
       SSDR_TILE(8);
@@ -579,23 +621,27 @@ int channelize_fused_tile(int n1, int n2, int bf16_b, int out_time) {
   return mma_tile(n1, n2, !bf16_b, out_time != 0);
 }
 
-// x_re/x_im: [nf, M] float32 (in_i16 = 0) or int16 (in_i16 = 1, ×in_scale);
-// head_*: [K−1, M] f32 carry rows; g2: [K, M]; at_*: [n1·n1, n2];
+// x_re/x_im: [D, nf, M] float32 (in_i16 = 0) or int16 (in_i16 = 1,
+// ×in_scale), D = n_shards time shards of nf frames; head_*: [D, K−1, M] f32
+// history rows, each shard's own; g2: [K, M]; at_*: [n1·n1, n2];
 // ct: the stage-B DFT transposed, bf16 planes [n2 (k2), n2 (j2)] — bf16_b =
 // 1 (stage B on bf16 operands): re, im; bf16_b = 0 (float32 operands, each
 // split in a high and a low bf16 piece, three passes): re, im high, then
-// re, im low; out_*: the raw planes [n1, nf, n2], f32 or (bf16_b only) bf16
-// (out_time = 0), or the time-major bin-ordered planes [nf, M], f32
-// (out_time = 1: element (k1, t, k2) at t·M + k2·n1 + k1).
+// re, im low; out_*: the raw planes [D, n1_out, nf, n2], f32 or (bf16_b only)
+// bf16, planes n1 … n1_out − 1 zero (out_time = 0), or the time-major
+// bin-ordered planes [D, nf, M], f32 (out_time = 1, n1_out = n1: element
+// (k1, t, k2) at t·M + k2·n1 + k1).
 int channelize_fused_raw3(const void* x_re, const void* x_im, int in_i16,
                           float in_scale, const float* head_re,
                           const float* head_im, const float* g2,
                           const float* at_r, const float* at_i,
                           const void* ct, void* out_r, void* out_i,
                           int out_bf16, int nf, int M, int K, int n1, int n2,
-                          int bf16_b, int out_time, void* stream) {
+                          int bf16_b, int out_time, int n_shards, int n1_out,
+                          void* stream) {
   if (n1 * n2 != M || n2 % kN2Step || K < 1 || K > kKMax || nf < 1 ||
-      (out_time && out_bf16))
+      (out_time && out_bf16) || n_shards < 1 || n_shards > 65535 ||
+      n1_out < n1 || (out_time && n1_out != n1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* t = static_cast<const __nv_bfloat16*>(ct);
@@ -604,10 +650,11 @@ int channelize_fused_raw3(const void* x_re, const void* x_im, int in_i16,
     return (int)dispatch_tile<false>(T, in_i16, out_bf16, out_time, x_re,
                                      x_im, in_scale, head_re, head_im, g2,
                                      at_r, at_i, t, out_r, out_i, nf, M, K,
-                                     n1, n2, s);
+                                     n1, n2, n_shards, n1_out, s);
   return (int)dispatch_tile<true>(T, in_i16, out_bf16, out_time, x_re, x_im,
                                   in_scale, head_re, head_im, g2, at_r, at_i,
-                                  t, out_r, out_i, nf, M, K, n1, n2, s);
+                                  t, out_r, out_i, nf, M, K, n1, n2,
+                                  n_shards, n1_out, s);
 }
 
 }  // extern "C"

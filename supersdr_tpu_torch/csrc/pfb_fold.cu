@@ -18,7 +18,10 @@
 // The first K−1 rows of the stream come straight from `carry`, so carry ‖ x
 // is never concatenated (nor padded to DMA windows, as the TPU kernel must)
 // in device memory; the ragged last run of frames and columns past M are
-// masked. The output is interleaved complex64, ready for torch.fft. Products
+// masked. A leading shard axis (blockIdx.z: D time shards, each with its own
+// carry, the mesh form of the wideband fallback tier) moves the base
+// pointers once a block. The output is interleaved complex64, ready for
+// torch.fft. Products
 // and sums are rounded separately (no fused multiply-add), in the plain
 // version's order, so the two agree bit for bit.
 
@@ -39,6 +42,12 @@ pfb_fold_kernel(const float* __restrict__ G, const float* __restrict__ c_re,
                 int nf, int M) {
   const int r = blockIdx.x * kThreads + threadIdx.x;
   if (r >= M) return;
+  const long sh = blockIdx.z;  // this block's shard
+  c_re += sh * (K - 1) * M;
+  c_im += sh * (K - 1) * M;
+  x_re += sh * nf * M;
+  x_im += sh * nf * M;
+  out += sh * nf * M;
   const int t0 = blockIdx.y * kFrames;
   const int t1 = min(t0 + kFrames, nf);
   float g[K], wr[K], wi[K];
@@ -78,9 +87,9 @@ pfb_fold_kernel(const float* __restrict__ G, const float* __restrict__ c_re,
 template <int K>
 cudaError_t launch(const float* G, const float* c_re, const float* c_im,
                    const float* x_re, const float* x_im, float2* out, int nf,
-                   int M, cudaStream_t s) {
+                   int M, int n_shards, cudaStream_t s) {
   const dim3 grid((M + kThreads - 1) / kThreads,
-                  (nf + kFrames - 1) / kFrames);
+                  (nf + kFrames - 1) / kFrames, n_shards);
   pfb_fold_kernel<K><<<grid, kThreads, 0, s>>>(G, c_re, c_im, x_re, x_im,
                                                out, nf, M);
   return cudaGetLastError();
@@ -94,26 +103,31 @@ extern "C" {
 int pfb_fold_max_taps() { return kKMax; }
 
 // G: [K, M] fold taps (G[k, r] = reversed prototype[k·M + r]); c_*: the
-// carried (K−1)·M history planes; x_*: nf·M input planes; out: [nf, M]
-// complex64 (interleaved re, im).
+// carried history planes [D, (K−1)·M]; x_*: input planes [D, nf·M]; out:
+// [D, nf, M] complex64 (interleaved re, im); D = n_shards time shards.
 int pfb_fold(const float* G, const float* c_re, const float* c_im,
              const float* x_re, const float* x_im, void* out, int nf, int M,
-             int K, void* stream) {
-  if (nf < 1 || M < 1 || nf > kFrames * 65535)
+             int K, int n_shards, void* stream) {
+  if (nf < 1 || M < 1 || nf > kFrames * 65535 || n_shards < 1 ||
+      n_shards > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float2* o = static_cast<float2*>(out);
+#define SSDR_FOLD(KK) \
+  case KK:            \
+    return (int)launch<KK>(G, c_re, c_im, x_re, x_im, o, nf, M, n_shards, s)
   switch (K) {
-    case 1: return (int)launch<1>(G, c_re, c_im, x_re, x_im, o, nf, M, s);
-    case 2: return (int)launch<2>(G, c_re, c_im, x_re, x_im, o, nf, M, s);
-    case 3: return (int)launch<3>(G, c_re, c_im, x_re, x_im, o, nf, M, s);
-    case 4: return (int)launch<4>(G, c_re, c_im, x_re, x_im, o, nf, M, s);
-    case 5: return (int)launch<5>(G, c_re, c_im, x_re, x_im, o, nf, M, s);
-    case 6: return (int)launch<6>(G, c_re, c_im, x_re, x_im, o, nf, M, s);
-    case 7: return (int)launch<7>(G, c_re, c_im, x_re, x_im, o, nf, M, s);
-    case 8: return (int)launch<8>(G, c_re, c_im, x_re, x_im, o, nf, M, s);
+    SSDR_FOLD(1);
+    SSDR_FOLD(2);
+    SSDR_FOLD(3);
+    SSDR_FOLD(4);
+    SSDR_FOLD(5);
+    SSDR_FOLD(6);
+    SSDR_FOLD(7);
+    SSDR_FOLD(8);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef SSDR_FOLD
 }
 
 }  // extern "C"

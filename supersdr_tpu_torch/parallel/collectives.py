@@ -1,17 +1,22 @@
-"""What moves between time shards: halos, contexts and scan summaries.
+"""What moves between shards: halos, contexts, scan summaries, the
+all_to_all reshard, broadcasts and stage handoffs.
 
 Inside `shard_map` the reference gets these from `jax.lax` (`ppermute`,
-`all_gather`, `axis_index`: `supersdr_tpu/ops/scans.py`). Here a sharded
-tensor carries its time shards on an explicit axis, `[*batch, D,
-n_local]`, and the functions below are the whole traffic between shards.
-Every module above this one (the mesh scans, the demodulators, the AGC,
-the sharded chain) reaches other shards only through them, so a transport
-across devices goes here and nowhere else.
+`all_gather`, `all_to_all`, `axis_index`: `supersdr_tpu/ops/scans.py`,
+`supersdr_tpu/parallel/`). Here a sharded tensor carries its shards on an
+explicit axis — `[*batch, D, n_local]` for the time-sharded halos and
+scans, a leading `[D, …]` for the reshard, the broadcast and the handoff —
+and the functions below are the whole traffic between shards. Every module
+above this one (the mesh scans, the demodulators, the AGC, the sharded
+chain and wideband pipeline, the distributed FFT, the pipeline) reaches
+other shards only through them, so a transport across devices goes here
+and nowhere else.
 
 `traffic` counts, in plain integers, the bytes a real mesh would move for
-each call: per time shard, received, as `parallel/comm_model.py` reckons
-them (a halo of n samples over R rows is R·n·itemsize; a gathered summary
-is D·R·itemsize).
+each call: per shard, received, as `parallel/comm_model.py` reckons them
+(a halo of n samples over R rows is R·n·itemsize; a gathered summary is
+D·R·itemsize; an all_to_all (D−1)/D of a shard's buffer; a broadcast or a
+handoff one shard's value).
 """
 
 from __future__ import annotations
@@ -34,11 +39,15 @@ class Traffic:
     def reset(self) -> None:
         self.halo_bytes = 0
         self.summary_bytes = 0
+        self.a2a_bytes = 0
+        self.carry_bytes = 0
+        self.send_bytes = 0
         self.n_collectives = 0
 
     @property
     def total_bytes(self) -> int:
-        return self.halo_bytes + self.summary_bytes
+        return (self.halo_bytes + self.summary_bytes + self.a2a_bytes
+                + self.carry_bytes + self.send_bytes)
 
 
 traffic = Traffic()
@@ -98,3 +107,54 @@ def shard_index(x: torch.Tensor) -> torch.Tensor:
     """Each shard's index along the time axis, `[D, 1]`, broadcasting
     against `[*batch, D, n]` (the reference's `axis_index`)."""
     return torch.arange(x.shape[-2], device=x.device)[:, None]
+
+
+def _shard_bytes(t: torch.Tensor) -> int:
+    """Bytes of one shard's value of a `[D, …]` tensor."""
+    return math.prod(t.shape[1:]) * t.element_size()
+
+
+def all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int
+               ) -> torch.Tensor:
+    """The reference's tiled `jax.lax.all_to_all` over a leading shard
+    axis: x `[D, *s]` → `[D, *s']`, where shard j receives block j of
+    every shard's `split_axis` (which D must divide) and lays them side
+    by side along `concat_axis`, in shard order (axes count from 0 within
+    a shard's `[*s]`). One permute-and-copy: the result is contiguous."""
+    D = x.shape[0]
+    s = list(x.shape[1:])
+    if s[split_axis] % D:
+        raise ValueError(f"split axis {split_axis} of {tuple(s)} does not "
+                         f"divide by {D} shards")
+    y = x.reshape(D, *s[:split_axis], D, s[split_axis] // D,
+                  *s[split_axis + 1:])
+    y = y.movedim(1 + split_axis, 0)      # [dst, src, *s with the block]
+    y = y.movedim(1, 1 + concat_axis)     # src right before concat_axis
+    s[split_axis] //= D
+    s[concat_axis] *= D
+    traffic.a2a_bytes += _shard_bytes(x) * (D - 1) // D
+    traffic.n_collectives += 1
+    return y.reshape(D, *s).contiguous()
+
+
+def broadcast_last(v: torch.Tensor) -> torch.Tensor:
+    """The last shard's value at every shard: `[D, *s]` → `[D, *s]` (the
+    reference's `bcast_last`: a binomial ppermute tree of ceil(log2 D)
+    rounds, in which each shard receives the value once; on one device a
+    broadcast view)."""
+    D = v.shape[0]
+    if D > 1:
+        traffic.carry_bytes += _shard_bytes(v)
+        traffic.n_collectives += math.ceil(math.log2(D))
+    return v[-1:].expand_as(v)
+
+
+def send_next(x: torch.Tensor) -> torch.Tensor:
+    """Each shard's value to the next shard, `[D, *s]` → `[D, *s]`, shard 0
+    receiving zeros (the pipeline's one-hop `ppermute(perm=[(0, 1)])` on
+    two shards)."""
+    out = torch.zeros_like(x)
+    out[1:] = x[:-1]
+    traffic.send_bytes += _shard_bytes(x)
+    traffic.n_collectives += 1
+    return out

@@ -1,13 +1,19 @@
-"""Collective-traffic accounting for the time-sharded chain.
+"""Collective-traffic accounting for the sharded chain and the sharded
+wideband pipeline.
 
-Counterpart of the chain half of `supersdr_tpu/parallel/comm_model.py`.
-The traffic a time shard receives a call is O(n_taps + D) samples whatever
-its length, so compute grows with the chunk while communication does not.
-`chain_comm_model` is the analytic count; `parallel/collectives.traffic`
-counts the same bytes as the chain runs, and the tests hold the two equal.
-The reference charges 8 bytes a channel for the neighbour sample in every
-mode; this model charges what the mode moves (NBFM one complex sample, AM
-one float, the others nothing), since it is held to the counted bytes.
+Counterpart of `supersdr_tpu/parallel/comm_model.py`. The traffic a time
+shard of the chain receives a call is O(n_taps + D) samples whatever its
+length, so compute grows with the chunk while communication does not; the
+wideband pipeline adds one volume collective, the all_to_all reshard.
+`chain_comm_model` and `wideband_comm_model` are the analytic counts;
+`parallel/collectives.traffic` counts the same bytes as the pipelines run,
+and the tests hold the two equal. The reference also reads the bytes off
+the compiled HLO of its sharded programs (`collective_bytes_from_hlo`);
+the port has no HLO, and `collectives.traffic`, which every byte between
+shards passes through, takes that role of ground truth. The reference
+charges 8 bytes a channel for the neighbour sample in every mode; this
+model charges what the mode moves (NBFM one complex sample, AM one float,
+the others nothing), since it is held to the counted bytes.
 
 The α-β projection takes its link numbers as arguments. The default rate
 is NVLink's on an H100 SXM, 450 GB/s each way (NVIDIA's data sheet); the
@@ -16,6 +22,8 @@ default.
 """
 
 from __future__ import annotations
+
+import math
 
 NVLINK_GBPS = 450.0     # H100 SXM NVLink, each way (data sheet)
 
@@ -47,6 +55,41 @@ def chain_comm_model(cfg, n_time: int, n_chan_local: int = 1) -> dict:
         halos += n_chan_local * (w - 1) * 4
     return {"halo_bytes": halos, "summary_bytes": summaries,
             "total_bytes": halos + summaries}
+
+
+def wideband_comm_model(cfg, d: int, i16: bool = False,
+                        planar_waste_max: float | None = None) -> dict:
+    """Bytes one shard receives a chunk of the sharded wideband pipeline
+    (`parallel/sharded_wideband.py`) on `d` shards, on the tier and
+    factoring its `build` picks: the PFB history halo (int16 planes when
+    the chunk is int16, `i16`), the all_to_all reshard (the one volume
+    collective) and the broadcast of the last shard's PFB tail. On the
+    planar tier the all_to_all moves the raw [n1_pad, f_local, n2] planes,
+    two real planes in the coupling type (bf16 on the fast profile),
+    phantom planes included; elsewhere a [n_chan, f_local] complex64
+    buffer (two float32 planes on the time-major tier). Also the number of
+    collectives a chunk (a halo of both planes is one)."""
+    from supersdr_tpu_torch.parallel import sharded_wideband as sw
+    from supersdr_tpu_torch.runtime import wideband as wb
+    mp = sw.plan_mesh(cfg, d, planar_waste_max)
+    plan = wb.pfb_plan(cfg)
+    halo = plan.history * (4 if i16 else 8)
+    pad_frac = 0.0
+    if mp.tier == "planar":
+        n1, n2, n1_pad = mp.factors
+        bpp = (2 if (cfg.chan_precision == "default"
+                     and cfg.passband_precision == "default") else 4)
+        a2a = n1_pad * n2 * mp.f_local * 2 * bpp * (d - 1) // d
+        pad_frac = (n1_pad * n2 - cfg.n_chan) / cfg.n_chan
+    else:
+        a2a = cfg.n_chan * mp.f_local * 8 * (d - 1) // d
+    carry = plan.history * 8 if d > 1 else 0
+    n_coll = (1 + (1 if mp.tier == "fallback" else 2)
+              + (2 * math.ceil(math.log2(d)) if d > 1 else 0))
+    return {"halo_bytes": halo, "all_to_all_bytes": a2a,
+            "carry_bytes": carry, "planar": mp.tier == "planar",
+            "tier": mp.tier, "pad_frac": pad_frac, "n_collectives": n_coll,
+            "total_bytes": halo + a2a + carry}
 
 
 def scaling_efficiency(compute_s_per_chunk: float, comm_bytes: int,

@@ -314,7 +314,10 @@ def channelize_dispatch(cfg: WidebandConfig, params: WidebandParams,
     `channelize_mxu2_c`; "legacy" → `channelize_c`.
 
     carry: CX [history]; iq: CX [n] float32 planes. Returns (new carry CX,
-    chans complex64 [n_chan, n/n_chan])."""
+    chans complex64 [n_chan, n/n_chan]). With a leading shard axis, carry
+    [D, history] and iq [D, n] (each time shard with its own history: the
+    sharded pipeline's fallback tier), each shard's new carry and chans
+    [D, n_chan, n/n_chan], one launch for all shards."""
     _check_ported(cfg)
     plan = pfb_plan(cfg)
     M, K = cfg.n_chan, cfg.taps_per
@@ -331,12 +334,13 @@ def channelize_dispatch(cfg: WidebandConfig, params: WidebandParams,
             bf16_mxu=cfg.chan_precision == "default",
             out_dtype=torch.float32)
         # [n1(k1), nf, n2(k2)] → bin m = k2·n1 + k1: [n2, n1, nf] → [M, nf]
+        lead = raw_r.shape[:-3]
         return new_carry, torch.complex(
-            raw_r.permute(2, 0, 1).reshape(M, nf),
-            raw_i.permute(2, 0, 1).reshape(M, nf))
+            raw_r.movedim(-1, -3).reshape(*lead, M, nf),
+            raw_i.movedim(-1, -3).reshape(*lead, M, nf))
     carry_c = torch.complex(carry.re, carry.im)
     x = torch.complex(iq.re, iq.im)
-    if cfg.chan_impl in ("mxu2fused", "mxu2"):
+    if cfg.chan_impl in ("mxu2fused", "mxu2") and x.ndim == 1:
         c, chans = channelizer.channelize_mxu2_c(plan, params.W_pfb,
                                                  carry_c, x)
     else:

@@ -14,7 +14,8 @@ import torch
 from supersdr_tpu_torch import _build, convert, device
 from supersdr_tpu_torch.ops import channelizer, cx
 from supersdr_tpu_torch.ops.cuda import chain_tail, channelize_fused
-from supersdr_tpu_torch.parallel import mesh, sharded_chain
+from supersdr_tpu_torch.parallel import (dist_fft, mesh, pipeline,
+                                         sharded_chain, sharded_wideband)
 from supersdr_tpu_torch.runtime import chain, wideband
 
 REPO = Path(__file__).resolve().parents[1]
@@ -31,7 +32,12 @@ REPO = Path(__file__).resolve().parents[1]
     "supersdr_tpu_torch.parallel.mesh",
     "supersdr_tpu_torch.parallel.collectives",
     "supersdr_tpu_torch.parallel.sharded_chain",
-    "supersdr_tpu_torch.parallel.comm_model", "supersdr_tpu_torch.device"])
+    "supersdr_tpu_torch.parallel.comm_model", "supersdr_tpu_torch.device",
+    "supersdr_tpu_torch.parallel.sharded_wideband",
+    "supersdr_tpu_torch.parallel.dist_fft",
+    "supersdr_tpu_torch.parallel.pipeline",
+    "supersdr_tpu_torch.parallel.ingest",
+    "supersdr_tpu_torch.parallel.dryrun"])
 def test_imports_without_jax(module):
     """Nothing of JAX, and nothing of the JAX package either."""
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
@@ -165,6 +171,14 @@ CONSTRUCTORS = {
         chain.ChainConfig(**_SMALL_CHAIN), 2, device=d).phase,
     "mesh.make_mesh": lambda d: mesh.make_mesh(1, 4, device=d),
     "mesh.time_mesh": lambda d: mesh.time_mesh(4, device=d),
+    "sharded_wideband.make_mesh": lambda d: sharded_wideband.make_mesh(
+        4, device=d),
+    "sharded_wideband.make_params": lambda d: sharded_wideband.make_params(
+        _wb_cfg(), device=d).W_pfb,
+    "sharded_wideband.init_state": lambda d: sharded_wideband.init_state(
+        _wb_cfg(), device=d).pfb_carry.re,
+    "dist_fft.make_mesh": lambda d: dist_fft.make_mesh(2, device=d),
+    "pipeline.make_mesh": lambda d: pipeline.make_mesh(device=d),
     "convert.chain_params_from_jax": lambda d: convert.chain_params_from_jax(
         _numpy_params("chain_params"), device=d).P_interp,
     "convert.chain_state_from_jax": lambda d: convert.chain_state_from_jax(
