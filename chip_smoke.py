@@ -72,7 +72,24 @@ Phases, each printed as it runs; any failure exits non-zero:
      (also at MID in phase 3), timed; the time-major and fallback tiers on 8
      shards at MID against the same calls on the CPU; the distributed FFT
      against torch.fft.fft, the 2-stage pipeline against the serial
-     wideband, and the dry run of every mesh form on 8 shards.
+     wideband, and the dry run of every mesh form on 8 shards;
+ 10. the port's CLI on the card (`cli`), through `cli.main` with no
+     --device, on WAVs the port's `io/wav` writes in a temporary
+     directory: `demod` on the off-air-style fixture and on a 20.25 kHz
+     USB capture and `waterfall --avg 10` on the fixture, each against the
+     same call with --device cpu; `wideband --n-chan 2560 --profile fast`
+     and `quality` on a 0.992 s capture at 30.72 MHz (the tier it took,
+     each kernel's launches from a zeroed count, the wall split into WAV
+     read, staging, `process` and WAV writes), and the same calls at MID
+     on the card and on the CPU;
+ 11. the live session (`session`): `cli kiwi` against the port's fake
+     KiwiSDR on localhost for 240 frames at 12 kHz and at 20.25 kHz (the
+     served tone comes out of the recorded WAV), the session's own
+     `Receiver.process` times, then `Receiver.process` and
+     `DualChain.process` (MAIN + SUB) timed over 256 chunks: p50/p99
+     against the chunk's real-time budget, and where the card's time
+     goes in them. The fold's library time (`F.conv1d(groups=M)`, cuDNN)
+     is taken at HEADLINE beside the fold kernel's.
 Each kernel's line in the JSON summary carries its launches on the main
 paths, its time, its plain version's, its bound on this card (bytes over
 3.35 TB/s against operations over the peak rate of their type) and, where
@@ -91,6 +108,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1661,6 +1679,423 @@ def phase_mesh_parts(device, seed: int = 14) -> None:
         raise AssertionError("pipeline disagrees with the serial wideband")
     print(dryrun.dryrun_multichip(MESH_D, device), flush=True)
 
+# the CLI and live-session phases. WIDE: a 30.72 MHz capture into 2560
+# channels, 11904 frames (0.992 s), which both profiles' chan_tile_t
+# divide, so `cli wideband --profile` takes the planar tier; the MID capture
+# (512 frames) runs the same call on the card and on the CPU
+CLI_CARRIERS = ((3, 700.0), (311, 900.0), (777, 1100.0), (1290, 1300.0),
+                (1801, 1500.0), (2400, 1700.0))   # (channel, AM tone Hz)
+CLI_WIDE_FRAMES, CLI_MID_FRAMES = 11904, 512
+# card against CPU on the CLI's int16 WAVs: the quality tier and the plain
+# chain are float32-class (≥ 80 dB before the int16 rounding, which leaves
+# a code of difference here and there); the fast tier rounds to bf16 at
+# other places (TOL_TIER_DB)
+TOL_WAV_DB = {"quality": 75.0, "fast": TOL_TIER_DB["fast"], None: 75.0}
+SESSION_CHUNKS = 256
+
+
+def _wide_capture(n: int, fs: int, n_chan: int, device,
+                  seed: int = 21) -> np.ndarray:
+    """n samples at fs: AM carriers at the centres of CLI_CARRIERS'
+    channels over a noise floor far below them, made on the card."""
+    from supersdr_tpu_torch.ops import channelizer
+    plan = channelizer.PFBPlan(n_chan=n_chan, taps_per=8, hop=n_chan)
+    freqs = channelizer.channel_center_freqs(plan, fs)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t = torch.arange(n, device=device, dtype=torch.float64) / fs
+    z = torch.complex(torch.randn(n, generator=gen, device=device),
+                      torch.randn(n, generator=gen, device=device)) * 1e-4
+    for ch, tone in CLI_CARRIERS:
+        env = 0.05 * (1.0 + 0.5 * torch.cos(2 * np.pi * tone * t))
+        ph = torch.remainder(2 * np.pi * float(freqs[ch]) * t, 2 * np.pi)
+        z = z + (env * torch.exp(1j * ph)).to(torch.complex64)
+    return z.cpu().numpy()
+
+
+def _wav_snr(a_path, b_path) -> float:
+    from supersdr_tpu_torch.io import wav
+    a, ra = wav.read_audio_wav(a_path)
+    b, rb = wav.read_audio_wav(b_path)
+    if ra != rb or a.shape != b.shape:
+        raise AssertionError(f"{a_path} and {b_path} differ in shape")
+    return _snr_db(torch.from_numpy(a.astype(np.float64)),
+                   torch.from_numpy(b.astype(np.float64)))
+
+
+def _png_palette_index(path) -> np.ndarray:
+    """A PNG of the port's writer (filter 0 rows) as palette indices."""
+    import zlib
+    from supersdr_tpu_torch.display import colormap
+    raw = open(path, "rb").read()
+    w, h = (int(v) for v in np.frombuffer(raw[16:24], ">u4"))
+    pos, idat = 8, b""
+    while pos < len(raw):
+        n = int.from_bytes(raw[pos:pos + 4], "big")
+        if raw[pos + 4:pos + 8] == b"IDAT":
+            idat += raw[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    rgb = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    rgb = rgb[:, 1:].reshape(h, w, 3).astype(int)
+    pal = colormap.get_palette("cutesdr").astype(int)
+    return np.argmin(np.abs(rgb[..., None, :] - pal).sum(-1), axis=-1)
+
+
+class _CliClock:
+    """Wall time of the wideband CLI's parts: the WAV read, `process` (the
+    chunk's upload included, up to the card's finish), the WAV writes; and
+    the config it built. The rest of the wall is the audio's copy back and
+    the host's ranking."""
+
+    def __init__(self):
+        from supersdr_tpu_torch.io import wav
+        from supersdr_tpu_torch.runtime import wideband as wb
+        self.wav, self.wb = wav, wb
+        self.t = {"read": 0.0, "process": 0.0, "write": 0.0}
+        self.chunks, self.cfg = 0, None
+
+    def _timed(self, key, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if key == "process":
+                self.cfg = a[0]
+                self.chunks += 1
+                torch.cuda.synchronize()
+            self.t[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    def __enter__(self):
+        self._saved = (self.wav.read_kiwi_iq_wav, self.wb.process,
+                       self.wav.AudioRecorder.save)
+        self.wav.read_kiwi_iq_wav = self._timed("read", self._saved[0])
+        self.wb.process = self._timed("process", self._saved[1])
+        self.wav.AudioRecorder.save = self._timed("write", self._saved[2])
+        return self
+
+    def __exit__(self, *exc):
+        (self.wav.read_kiwi_iq_wav, self.wb.process,
+         self.wav.AudioRecorder.save) = self._saved
+
+    def tier(self) -> str:
+        wb, cfg = self.wb, self.cfg
+        if not cfg.time_major:
+            return "chan-major"
+        if wb._planar_active(cfg):
+            return "planar"
+        return "time-major" if wb._tmajor_fused_ok(cfg) else "fallback"
+
+
+class _PlainKernels:
+    """The channelizer's and both tails' launches swapped for their plain
+    versions on the same card tensors, so a whole CLI call gives the
+    reference its kernels' run is held against."""
+
+    def __enter__(self):
+        from supersdr_tpu_torch.ops.cuda import chain_tail as ct
+        from supersdr_tpu_torch.ops.cuda import channelize_fused as cf
+        self._mods = (cf, ct)
+        self._saved = (cf._launch, ct._launch_fir, ct._launch_am)
+        cf._launch = cf.channelize_fused_plain
+        ct._launch_fir, ct._launch_am = (ct.chain_tail_plain,
+                                         ct.chain_tail_am_plain)
+        return self
+
+    def __exit__(self, *exc):
+        cf, ct = self._mods
+        cf._launch, ct._launch_fir, ct._launch_am = self._saved
+
+
+def _carrier_names(cfg) -> list:
+    """The file names `cli wideband` gives CLI_CARRIERS' channels under
+    cfg: each output row is named by its index and its centre frequency,
+    and the tier sets which row holds which channel."""
+    from supersdr_tpu_torch.ops import channelizer
+    from supersdr_tpu_torch.runtime import wideband as wb
+    freqs = wb.channel_freqs(cfg)
+    centres = channelizer.channel_center_freqs(wb.pfb_plan(cfg), cfg.fs_in)
+    names = []
+    for ch, _ in CLI_CARRIERS:
+        row = int(np.argmin(np.abs(freqs - centres[ch])))
+        if abs(freqs[row] - centres[ch]) > 1.0:
+            raise AssertionError(f"no output row at channel {ch}")
+        names.append(f"chan_{row:03d}_{freqs[row] / 1000:+.1f}kHz.wav")
+    return sorted(names)
+
+
+def _check_names(label: str, odir: str, want: list) -> list:
+    got = sorted(os.listdir(odir))
+    if got != want:
+        raise AssertionError(f"{label} wrote {got}, not the carriers' "
+                             f"channels {want}")
+    return got
+
+
+def _cli(argv) -> None:
+    from supersdr_tpu_torch import cli
+    rc = cli.main([str(a) for a in argv])
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} returned {rc}")
+
+
+def phase_cli(device, tmp: str) -> dict:
+    """The port's CLI on the card through `cli.main` (no --device: the card
+    by default), on WAVs written by the port's `io/wav`: `demod` on the
+    off-air-style fixture and on a 20.25 kHz USB capture, `waterfall` on
+    the fixture, each against the same call with --device cpu; `wideband
+    --n-chan 2560 --profile fast|quality` on a 0.992 s capture at 30.72
+    MHz (the tier, each kernel's launches from a zeroed count, the wall
+    split into read / process / writes), and the same calls at MID on the
+    card and on the CPU."""
+    from supersdr_tpu_torch.io import wav
+    out = {}
+    fixture = "tests/fixtures/kiwi_am_offair_12k.wav"
+    usb = os.path.join(tmp, "usb_20k25.wav")
+    fs = 20_250
+    t = np.arange(fs * 4) / fs
+    rng = np.random.default_rng(22)
+    wav.write_kiwi_iq_wav(usb, (0.2 * np.exp(2j * np.pi * 1000 * t)
+                                + 0.003 * (rng.normal(size=t.size) + 1j
+                                           * rng.normal(size=t.size))
+                                ).astype(np.complex64), fs)
+    for label, src, opts in (("demod AM off-air fixture", fixture,
+                              ["--mode", "AM"]),
+                             ("demod USB 20.25 kHz", usb, ["--mode", "USB"])):
+        paths = {}
+        for key, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+            paths[key] = os.path.join(tmp, f"{key}_demod.wav")
+            _cli(["demod", src, "-o", paths[key], *opts, *extra])
+        snr = _wav_snr(paths["cpu"], paths["card"])
+        print(f"cli {label}: card vs cpu {snr:.2f} dB (tol "
+              f"{TOL_WAV_DB[None]} dB)", flush=True)
+        if not snr >= TOL_WAV_DB[None]:
+            raise AssertionError(f"cli {label} disagrees with the CPU")
+    pngs = {}
+    for key, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        pngs[key] = os.path.join(tmp, f"{key}_wf.png")
+        _cli(["waterfall", fixture, "-o", pngs[key], "--avg", "10", *extra])
+    a, b = (_png_palette_index(pngs[k]) for k in ("cpu", "card"))
+    same = float(np.mean(a == b)) if a.shape == b.shape else 0.0
+    print(f"cli waterfall --avg 10: png {a.shape}, palette index equal in "
+          f"{same * 100:.3f} % of pixels, max step "
+          f"{int(np.abs(a - b).max()) if same else -1}", flush=True)
+    if not (same >= 0.999 and np.abs(a - b).max() <= 1):
+        raise AssertionError("cli waterfall disagrees with the CPU")
+    fs = 30_720_000
+    caps = {}
+    for name, frames in (("wide", CLI_WIDE_FRAMES), ("mid", CLI_MID_FRAMES)):
+        # the reader drops the first two 512-sample frames
+        caps[name] = os.path.join(tmp, f"{name}.wav")
+        t0 = time.perf_counter()
+        wav.write_kiwi_iq_wav(caps[name], _wide_capture(
+            2560 * frames + 1024, fs, 2560, device), fs)
+        print(f"cli capture {name}: {2560 * frames + 1024} samples at "
+              f"30.72 MHz written in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    top = str(len(CLI_CARRIERS))
+    for prof in ("fast", "quality"):
+        dirs = {k: os.path.join(tmp, f"wide_{prof}_{k}")
+                for k in ("kernel", "plain")}
+        argv = ["wideband", caps["wide"], "--n-chan", 2560, "--top", top,
+                "--profile", prof]
+        _reset_counts()
+        with _CliClock() as clk:
+            t0 = time.perf_counter()
+            _cli([*argv, "-o", dirs["kernel"]])
+            wall = time.perf_counter() - t0
+        launches = _counts()
+        secs = clk.cfg.chunk_in * clk.chunks / clk.cfg.fs_in
+        print(f"cli wideband {prof} 2560 ch, {secs:.3f} s of capture: tier "
+              f"{clk.tier()}, {clk.chunks} chunk(s) of "
+              f"{clk.cfg.chunk_per_chan} frames, launches {launches}; wall "
+              f"{wall:.3f} s = read {clk.t['read']:.3f} + process "
+              f"{clk.t['process']:.4f} + writes {clk.t['write']:.3f} + copy "
+              f"back and ranking {wall - sum(clk.t.values()):.3f}; "
+              f"{wall / secs:.3f} s wall and {clk.t['process'] / secs:.4f} s "
+              f"process a capture second", flush=True)
+        if launches["channelize_fused"] < 1 or launches["chain_tail"] < 1:
+            raise AssertionError(f"cli wideband {prof} missed a kernel")
+        # the same call with the plain channelizer and tails on the card
+        _reset_counts()
+        with _PlainKernels():
+            _cli([*argv, "-o", dirs["plain"]])
+        if any(_counts().values()):
+            raise AssertionError(f"cli wideband {prof} plain run launched "
+                                 f"a kernel: {_counts()}")
+        want = _carrier_names(clk.cfg)
+        names = _check_names(f"cli wideband {prof}", dirs["kernel"], want)
+        _check_names(f"cli wideband {prof} plain", dirs["plain"], want)
+        snr = min(_wav_snr(os.path.join(dirs["plain"], f),
+                           os.path.join(dirs["kernel"], f)) for f in names)
+        print(f"cli wideband {prof}: the carriers' {len(names)} channels, "
+              f"kernels vs plain on the card min {snr:.2f} dB (tol "
+              f"{TOL_WAV_DB[prof]} dB)", flush=True)
+        if not snr >= TOL_WAV_DB[prof]:
+            raise AssertionError(f"cli wideband {prof} disagrees with its "
+                                 f"plain kernels")
+        out[f"cli_{prof}"] = {"launches": launches}
+    for prof in ("fast", "quality"):
+        dirs = {}
+        for key, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+            dirs[key] = os.path.join(tmp, f"mid_{prof}_{key}")
+            with _CliClock() as clk:
+                _cli(["wideband", caps["mid"], "-o", dirs[key], "--n-chan",
+                      2560, "--top", top, "--profile", prof, *extra])
+        want = _carrier_names(clk.cfg)
+        names = _check_names(f"cli wideband MID {prof}", dirs["card"], want)
+        _check_names(f"cli wideband MID {prof} cpu", dirs["cpu"], want)
+        snr = min(_wav_snr(os.path.join(dirs["cpu"], f),
+                           os.path.join(dirs["card"], f)) for f in names)
+        print(f"cli wideband MID {prof}: {len(names)} channels, card vs cpu "
+              f"min {snr:.2f} dB (tol {TOL_WAV_DB[prof]} dB)", flush=True)
+        if not snr >= TOL_WAV_DB[prof]:
+            raise AssertionError(f"cli wideband MID {prof} disagrees with "
+                                 f"the CPU")
+    return out
+
+
+def _pcts(xs) -> str:
+    a = np.asarray(xs) * 1e3
+    return (f"p50 {np.percentile(a, 50):.3f} ms, p99 "
+            f"{np.percentile(a, 99):.3f} ms, max {a.max():.3f} ms")
+
+
+def phase_session(device, tmp: str, n_frames: int = 240) -> dict:
+    """`cli kiwi` against the port's fake KiwiSDR on localhost for
+    n_frames frames of 512 IQ samples at 12 kHz and at 20.25 kHz (the
+    rational resampler): the recorded WAV hears the served tone, and each
+    `Receiver.process` of the session is timed; then `Receiver.process`
+    (dispatch + fetch) and `DualChain.process` (MAIN + SUB) timed over
+    SESSION_CHUNKS chunks each, against the real-time budget of a chunk."""
+    from supersdr_tpu_torch.control import receiver as rxm
+    from supersdr_tpu_torch.io import wav
+    from supersdr_tpu_torch.io.fake_kiwi import FakeKiwiConfig, FakeKiwiServer
+    from supersdr_tpu_torch.runtime import dualrx
+    from supersdr_tpu_torch.apps import kiwi_session
+    out = {}
+    total = {k: 0 for k in _wrappers()}
+    for fs in (12_000, 20_250):
+        t = np.arange(512 * (n_frames + 8)) / fs
+        iq = (0.2 * np.exp(2j * np.pi * 1000 * t)).astype(np.complex64)
+        server = FakeKiwiServer(FakeKiwiConfig(
+            iq_source=iq, n_frames=n_frames + 8, audio_rate=fs,
+            audio_rate_true=float(fs))).start()
+        lat, orig = [], rxm.Receiver.process
+
+        def timed(self, blk, orig=orig, lat=lat):
+            t0 = time.perf_counter()
+            a = orig(self, blk)
+            lat.append(time.perf_counter() - t0)
+            return a
+        wav_out = os.path.join(tmp, f"live_{fs}.wav")
+        rxm.Receiver.process = timed
+        _reset_counts()
+        try:
+            _cli(["kiwi", "-s", "127.0.0.1", "-p", server.port, "-f",
+                  "14200", "--mode", "USB", "-o", wav_out, "--frames",
+                  n_frames, "-b", "4"])
+        finally:
+            rxm.Receiver.process = orig
+            server.stop()
+        for k, v in _counts().items():
+            total[k] += v
+        data, rate = wav.read_audio_wav(wav_out)
+        a = data.astype(np.float64)[len(data) // 2:] / 32767.0
+        spec = np.abs(np.fft.rfft(a * np.hanning(a.size)))
+        peak = np.argmax(spec) * rate / a.size
+        cfg = kiwi_session._session_chain_cfg("USB", fs, 2048)
+        budget = cfg.chunk / fs
+        print(f"session cli kiwi {fs} Hz: {n_frames} frames, "
+              f"{len(lat)} chunks of {cfg.chunk}, audio {data.shape} at "
+              f"{rate} Hz peaking at {peak:.1f} Hz; Receiver.process "
+              f"{_pcts(lat)} against the {budget * 1e3:.1f} ms budget",
+              flush=True)
+        if rate != 48_000 or len(lat) < n_frames * 512 // cfg.chunk - 2 \
+                or abs(peak - 1000.0) > 5.0:
+            raise AssertionError(f"session at {fs} Hz failed")
+        # the receiver alone, and MAIN + SUB, over SESSION_CHUNKS chunks
+        rng = np.random.default_rng(fs)
+        blk = (0.05 * np.exp(2j * np.pi * 1000 * np.arange(cfg.chunk) / fs)
+               + 0.002 * (rng.normal(size=cfg.chunk) + 1j * rng.normal(
+                   size=cfg.chunk))).astype(np.complex64)
+        rx = rxm.Receiver(cfg=cfg, center_freq_khz=14200.0, freq=14200.0,
+                          radio_mode="USB")
+        sub = rxm.Receiver(cfg=cfg, center_freq_khz=14200.0, freq=14201.0,
+                           radio_mode="CW")
+        dual = dualrx.DualChain(cfg)
+        dual.refresh([rx, sub], [True, True])
+        if {rx.device.type, dual.device.type} != {device.type}:
+            raise AssertionError("the receivers are not on the card")
+        times = {"rx": [], "rx_dispatch": [], "dual": []}
+        for i in range(SESSION_CHUNKS + 8):
+            t0 = time.perf_counter()
+            o = rx.process_dispatch(blk)
+            t1 = time.perf_counter()
+            audio = rx.process_fetch(o)
+            t2 = time.perf_counter()
+            da, dr = dual.process(blk)
+            t3 = time.perf_counter()
+            if i >= 8:
+                times["rx"].append(t2 - t0)
+                times["rx_dispatch"].append(t1 - t0)
+                times["dual"].append(t3 - t2)
+        if not (np.isfinite(audio).all() and np.isfinite(da).all()
+                and audio.shape == (cfg.audio_chunk,)
+                and da.shape == (2, cfg.audio_chunk)):
+            raise AssertionError("receiver outputs are not finite")
+        for key, label in (("rx", "Receiver.process (dispatch + fetch)"),
+                           ("rx_dispatch", "Receiver.process_dispatch"),
+                           ("dual", "DualChain.process (MAIN + SUB)")):
+            print(f"latency {fs} Hz {label}, {SESSION_CHUNKS} chunks of "
+                  f"{cfg.chunk}: {_pcts(times[key])} against the "
+                  f"{budget * 1e3:.1f} ms budget", flush=True)
+        if fs == 12_000:
+            device_share("Receiver.process 12 kHz", lambda: rx.process(blk),
+                         calls=20, rows=6)
+            device_share("DualChain.process 12 kHz",
+                         lambda: dual.process(blk), calls=20, rows=6)
+        out[f"latency_{fs}"] = {k: (float(np.percentile(v, 50)) * 1e3,
+                                    float(np.percentile(v, 99)) * 1e3)
+                                for k, v in times.items()}
+    out["launches"] = total
+    return out
+
+
+def fold_library(run: dict, iters: int = 5, seed: int = 15) -> float:
+    """The fold as one library call at HEADLINE: `F.conv1d(groups=M)`
+    (cuDNN) on the real and imaginary parts as one batch of two, the
+    rows laid out channel-major outside the timing. Held against the
+    plain fold; never called by the port."""
+    import torch.nn.functional as F
+    from supersdr_tpu_torch.ops import cx
+    from supersdr_tpu_torch.ops.cuda import pfb_fold as pf
+    from supersdr_tpu_torch.runtime import wideband as wb
+    cfg, params, chunks = run["cfg"], run["params"], run["chunks"]
+    dev = chunks[0].re.device
+    plan = wb.pfb_plan(cfg)
+    M, K, nf = cfg.n_chan, cfg.taps_per, cfg.chunk_per_chan
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    carry = cx.CX(*(torch.randn(plan.history, generator=gen, device=dev)
+                    * 0.05 for _ in range(2)))
+    x = chunks[0]
+    G = params.W_pfb.reshape(-1).flip(0).reshape(K, M).contiguous()
+    rows = torch.stack([torch.cat([carry.re, x.re]),
+                        torch.cat([carry.im, x.im])]).reshape(2, nf + K - 1,
+                                                              M)
+    inp = rows.transpose(1, 2).contiguous()            # [2, M, nf + K − 1]
+    w = G.T.contiguous()[:, None, :]                   # [M, 1, K]
+    lib = F.conv1d(inp, w, groups=M)                   # [2, M, nf]
+    ref = pf.pfb_fold_plain(G, carry.re, carry.im, x.re, x.im)
+    snr = _snr_db(torch.view_as_real(ref),
+                  torch.stack([lib[0].T, lib[1].T], dim=-1))
+    ms = cuda_ms(lambda: F.conv1d(inp, w, groups=M), iters)
+    print(f"library pfb_fold: F.conv1d(groups={M}) on [2, {M}, {nf + K - 1}]"
+          f" {ms:.3f} ms, against the plain fold {snr:.2f} dB (tol "
+          f"{TOL_SNR_DB['fold']} dB)", flush=True)
+    if not snr >= TOL_SNR_DB["fold"]:
+        raise AssertionError("the conv1d fold disagrees with the plain fold")
+    return ms
+
 
 def kernel_bounds(halo_bound: tuple) -> dict:
     """Each kernel's bound at the shape it is timed at (HEADLINE: 2560
@@ -1759,6 +2194,7 @@ def main() -> int:
     chan = phase_chanmajor(HEADLINE, dev)
     times = phase_timing(main_path["runs"], err)
     times.update(phase_chanmajor_timing(chan, err))
+    times["pfb_fold_library"] = fold_library(chan)
     planar_ms = {p: times[f"main_{p}_f32"] for p in ("fast", "quality")}
     del main_path["runs"], chan["chunks"]
     torch.cuda.empty_cache()
@@ -1774,8 +2210,13 @@ def main() -> int:
     times.update(mesh["times"])
     mesh_tiers = phase_mesh_tiers(dev)
     phase_mesh_parts(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_runs = phase_cli(dev, tmp)
+        session = phase_session(dev, tmp)
     paths = {"planar": main_path, "chanmajor": chan, "sharded": sharded,
-             "tmajor": tmajor, "mesh": mesh, "mesh_tiers": mesh_tiers}
+             "tmajor": tmajor, "mesh": mesh, "mesh_tiers": mesh_tiers,
+             **cli_runs, "session": session}
     bounds = kernel_bounds(times["halo_bound"])
     kernels = [
         _summary("channelize_fused", "channelize_fused.cu",
@@ -1790,7 +2231,8 @@ def main() -> int:
                  mesh_plain_ms=times["mesh_chain_tail_fast"][1],
                  mesh_bound_ms=bounds["chain_tail_mesh"][0]),
         _summary("pfb_fold", "pfb_fold.cu", "pfb_fold.py:36", paths, err,
-                 times["pfb_fold"], bounds["pfb_fold"]),
+                 times["pfb_fold"], bounds["pfb_fold"],
+                 library_ms=times["pfb_fold_library"]),
         _summary("chain_tail_am", "chain_tail.cu", "chain_tail.py:304",
                  paths, err, times["chain_tail_am"],
                  bounds["chain_tail_am"]),

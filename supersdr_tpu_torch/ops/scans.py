@@ -4,6 +4,7 @@ Counterpart of `supersdr_tpu/ops/scans.py`:
 
   linear   y[n] = a[n]·y[n−1] + b[n]        one-pole IIR, DC block
   max-plus y[n] = max(y[n−1] + a[n], b[n])  dB-domain peak tracker
+  saturating y[n] = clip(y[n−1] + a[n], lo, hi)  ADPCM step index, sample
 
 Both compose associatively, so a log-depth doubling scan evaluates them
 exactly up to float rounding; the time-constant forms use the reference's
@@ -32,8 +33,8 @@ from supersdr_tpu_torch.parallel import collectives
 from supersdr_tpu_torch.parallel.collectives import left_context, left_halo
 
 __all__ = ["linear_scan", "linear_scan_const", "maxplus_scan",
-           "maxplus_scan_const", "one_pole", "dc_block", "sliding_max",
-           "left_halo", "left_context"]
+           "maxplus_scan_const", "saturating_add_scan", "one_pole",
+           "dc_block", "sliding_max", "left_halo", "left_context"]
 
 
 def _as_tensor(v, like: torch.Tensor) -> torch.Tensor:
@@ -155,6 +156,27 @@ def maxplus_scan_const(a, b: torch.Tensor, y0) -> torch.Tensor:
     if y0b.ndim < b.ndim:
         y0b = y0b[..., None]
     return j * a + torch.maximum(cm, y0b + a)
+
+
+def saturating_add_scan(a: torch.Tensor, lo: int, hi: int, y0: int
+                        ) -> torch.Tensor:
+    """y[n] = min(max(y[n−1] + a[n], lo), hi) with y[−1] = y0, exact in
+    int64 (a: integer tensor [n]). Each step is the map x ↦ clip(x + a,
+    l, h); two of them compose to one, clip(x + a1 + a2, clip(l1 + a2, l2,
+    h2), clip(h1 + a2, l2, h2)), so a doubling scan over the (a, l, h)
+    triples evaluates the recurrence in log-depth."""
+    big = 1 << 62          # the identity's open bounds, far from overflow
+    A = a.to(torch.int64)
+    L = torch.full_like(A, lo)
+    H = torch.full_like(A, hi)
+    s = 1
+    while s < A.shape[-1]:
+        pa, pl, ph = _shift(A, s, 0), _shift(L, s, -big), _shift(H, s, big)
+        L, H = (torch.minimum(torch.maximum(pl + A, L), H),
+                torch.minimum(torch.maximum(ph + A, L), H))
+        A = pa + A
+        s *= 2
+    return torch.minimum(torch.maximum(A + y0, L), H)
 
 
 def one_pole(x: torch.Tensor, coeff, y0, shard_axis: int | None = None

@@ -12,11 +12,12 @@ import pytest
 import torch
 
 from supersdr_tpu_torch import _build, convert, device
-from supersdr_tpu_torch.ops import channelizer, cx
+from supersdr_tpu_torch.control import receiver
+from supersdr_tpu_torch.ops import adpcm, channelizer, cx, spectrum
 from supersdr_tpu_torch.ops.cuda import chain_tail, channelize_fused
 from supersdr_tpu_torch.parallel import (dist_fft, mesh, pipeline,
                                          sharded_chain, sharded_wideband)
-from supersdr_tpu_torch.runtime import chain, wideband
+from supersdr_tpu_torch.runtime import chain, dualrx, wideband
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -37,7 +38,22 @@ REPO = Path(__file__).resolve().parents[1]
     "supersdr_tpu_torch.parallel.dist_fft",
     "supersdr_tpu_torch.parallel.pipeline",
     "supersdr_tpu_torch.parallel.ingest",
-    "supersdr_tpu_torch.parallel.dryrun"])
+    "supersdr_tpu_torch.parallel.dryrun",
+    "supersdr_tpu_torch.cli", "supersdr_tpu_torch.apps.kiwi_session",
+    "supersdr_tpu_torch.control.receiver", "supersdr_tpu_torch.control.links",
+    "supersdr_tpu_torch.control.bandplan",
+    "supersdr_tpu_torch.control.panadapter",
+    "supersdr_tpu_torch.control.eibi", "supersdr_tpu_torch.control.beacons",
+    "supersdr_tpu_torch.runtime.dualrx", "supersdr_tpu_torch.runtime.engine",
+    "supersdr_tpu_torch.runtime.governor", "supersdr_tpu_torch.runtime.ring",
+    "supersdr_tpu_torch.ops.spectrum", "supersdr_tpu_torch.ops.adpcm",
+    "supersdr_tpu_torch.ops.smeter", "supersdr_tpu_torch.ops.passband",
+    "supersdr_tpu_torch.native", "supersdr_tpu_torch.io.kiwi_protocol",
+    "supersdr_tpu_torch.io.websocket", "supersdr_tpu_torch.io.kiwi_client",
+    "supersdr_tpu_torch.io.status", "supersdr_tpu_torch.io.fake_kiwi",
+    "supersdr_tpu_torch.io.wav", "supersdr_tpu_torch.io.audio_sink",
+    "supersdr_tpu_torch.io.rigctl", "supersdr_tpu_torch.display.colormap",
+    "supersdr_tpu_torch.display.png", "supersdr_tpu_torch.display.render"])
 def test_imports_without_jax(module):
     """Nothing of JAX, and nothing of the JAX package either."""
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
@@ -187,6 +203,13 @@ CONSTRUCTORS = {
         _numpy_params("params"), device=d).W_pfb,
     "convert.state_from_jax": lambda d: convert.state_from_jax(
         _numpy_params("state"), device=d).pfb_carry.re,
+    "spectrum.spectrum_window": lambda d: spectrum.spectrum_window(
+        64, device=d),
+    "adpcm.decode_torch": lambda d: adpcm.decode_torch(b"\x17", device=d)[0],
+    "receiver.Receiver": lambda d: receiver.Receiver(
+        cfg=chain.ChainConfig(**_SMALL_CHAIN), device=d).params.P_interp,
+    "dualrx.DualChain": lambda d: dualrx.DualChain(
+        chain.ChainConfig(**_SMALL_CHAIN), device=d).state.phase,
 }
 
 
