@@ -89,7 +89,30 @@ Phases, each printed as it runs; any failure exits non-zero:
      `DualChain.process` (MAIN + SUB) timed over 256 chunks: p50/p99
      against the chunk's real-time budget, and where the card's time
      goes in them. The fold's library time (`F.conv1d(groups=M)`, cuDNN)
-     is taken at HEADLINE beside the fold kernel's.
+     is taken at HEADLINE beside the fold kernel's;
+ 12. the wideband monitor (`monitor`): `apps.monitor.MonitorCore` over the
+     HEADLINE fast config (planar) on three chunks of the CLI's six AM
+     carriers held on the card, fed as complex64 and as int16 wire pairs,
+     each against the same run with the plain kernels on the card (the
+     activity rows and frequencies, the RSSI table within 0.05 dB, the
+     selected channel's recording at TOL_WAV_DB["fast"]); over
+     `sharded_wideband.build` on 8 shards (the same carriers); ms a chunk
+     of `push` and of its host copies; `cli monitor --n-chan 2560
+     --headless` (the reference's defaults: chan-major, no kernel) on the
+     CLI's 30.72 MHz WAV, the card against --device cpu;
+ 13. the live interactive session (`live`): `cli kiwi --tui` against the
+     fake KiwiSDR with keys injected (SUB on, SUB to the centre, AM, a
+     retune, SUB off), the stereo WAV on the card against --device cpu;
+     `LiveTui.step` (MAIN + SUB and the native waterfall) p50/p99 over 256
+     chunks of 2048 samples at 12 kHz; `run_tui_wav` on the fixture, the
+     waterfall history on the card against the CPU;
+ 14. stream checkpoint/resume (`checkpoint`): HEADLINE fast planar, 4
+     chunks straight against 2, `save_state`, `load_state`, 2 more, audio
+     and RSSI bit-identical; the same for one receiver's chain;
+ 15. device tracing (`trace`): `utils.profiling.trace` around one
+     `process_n` call at HEADLINE; the written Chrome trace names the
+     channelizer and FIR-tail kernels; the traced call's time beside an
+     untraced one.
 Each kernel's line in the JSON summary carries its launches on the main
 paths, its time, its plain version's, its bound on this card (bytes over
 3.35 TB/s against operations over the peak rate of their type) and, where
@@ -102,6 +125,8 @@ when no CUDA device is present. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -1694,10 +1719,10 @@ TOL_WAV_DB = {"quality": 75.0, "fast": TOL_TIER_DB["fast"], None: 75.0}
 SESSION_CHUNKS = 256
 
 
-def _wide_capture(n: int, fs: int, n_chan: int, device,
-                  seed: int = 21) -> np.ndarray:
-    """n samples at fs: AM carriers at the centres of CLI_CARRIERS'
-    channels over a noise floor far below them, made on the card."""
+def _wide_capture_dev(n: int, fs: int, n_chan: int, device,
+                      seed: int = 21) -> torch.Tensor:
+    """n samples at fs, complex64 on the card: AM carriers at the centres
+    of CLI_CARRIERS' channels over a noise floor far below them."""
     from supersdr_tpu_torch.ops import channelizer
     plan = channelizer.PFBPlan(n_chan=n_chan, taps_per=8, hop=n_chan)
     freqs = channelizer.channel_center_freqs(plan, fs)
@@ -1709,7 +1734,13 @@ def _wide_capture(n: int, fs: int, n_chan: int, device,
         env = 0.05 * (1.0 + 0.5 * torch.cos(2 * np.pi * tone * t))
         ph = torch.remainder(2 * np.pi * float(freqs[ch]) * t, 2 * np.pi)
         z = z + (env * torch.exp(1j * ph)).to(torch.complex64)
-    return z.cpu().numpy()
+    return z
+
+
+def _wide_capture(n: int, fs: int, n_chan: int, device,
+                  seed: int = 21) -> np.ndarray:
+    """`_wide_capture_dev` on the host."""
+    return _wide_capture_dev(n, fs, n_chan, device, seed).cpu().numpy()
 
 
 def _wav_snr(a_path, b_path) -> float:
@@ -2061,6 +2092,487 @@ def phase_session(device, tmp: str, n_frames: int = 240) -> dict:
     return out
 
 
+MONITOR_CHUNKS = 3
+MONITOR_THRESH_DB = -70.0        # carriers ~-40 dB, the floor at -127
+LIVE_FRAMES = 240
+LIVE_KEYS = [[], ["y"], [], ["n"], ["a"], [], ["RIGHT"], [], ["Y"]]
+TOL_RSSI_DB = 0.05               # planar fast: the in-kernel power row
+
+
+def _carrier_freqs(cfg) -> list:
+    """CLI_CARRIERS' channel centres in Hz (sorted), by PFB bin."""
+    from supersdr_tpu_torch.ops import channelizer
+    from supersdr_tpu_torch.runtime import wideband as wb
+    centres = channelizer.channel_center_freqs(wb.pfb_plan(cfg), cfg.fs_in)
+    return sorted(float(centres[ch]) for ch, _ in CLI_CARRIERS)
+
+
+# one row of the monitor's activity table: mark, row, frequency, RSSI
+_MON_ROW = re.compile(r"^[ >] +(\d+) +([+-]\d+\.\dk) +([+-]\d+\.\d)")
+
+
+class _HostClock:
+    """Wall time of MonitorCore._host, the only host crossings of `push`,
+    each after the card has finished (so the copy's time, not the wait)."""
+
+    def __enter__(self):
+        from supersdr_tpu_torch.apps import monitor
+        self.cls, self.s = monitor.MonitorCore, 0.0
+        self.saved = self.cls.__dict__["_host"]
+        orig = self.saved.__func__
+
+        def timed(t):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(t)
+            self.s += time.perf_counter() - t0
+            return out
+        self.cls._host = staticmethod(timed)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._host = self.saved
+
+
+def _monitor_run(cfg, chunks, device, wav_path, process_fn=None,
+                 params=None):
+    """MonitorCore over `chunks` with the CLI_CARRIERS[1] channel
+    selected and recorded; returns (core, launches, push seconds)."""
+    from supersdr_tpu_torch.apps.monitor import MonitorCore
+    core = MonitorCore(cfg, params=params, process_fn=process_fn,
+                       thresh_db=MONITOR_THRESH_DB, device=device)
+    core.select_freq(_carrier_freqs(cfg)[1])
+    core.start_recording(wav_path)
+    _reset_counts()
+    secs = []
+    for c in chunks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        core.push(c)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = _counts()
+    core.stop_recording()
+    return core, launches, secs
+
+
+def _same_activity(label, got, want, rssi_tol) -> None:
+    ga, wa = got.activity(), want.activity()
+    rows_ok = [(r, f) for r, f, _ in ga] == [(r, f) for r, f, _ in wa]
+    d = float(np.abs(got.rssi_rows - want.rssi_rows).max())
+    print(f"{label}: activity {len(ga)} channels {'equal' if rows_ok else 'DIFFER'}"
+          f", rssi_rows max |diff| {d:.4f} dB (tol {rssi_tol} dB)",
+          flush=True)
+    if not rows_ok or not d <= rssi_tol:
+        raise AssertionError(f"{label} disagrees")
+
+
+def phase_monitor(device, tmp: str) -> dict:
+    """The wideband monitor at full width: `MonitorCore` over the HEADLINE
+    fast config (planar, 2560 channels, 16128 frames a chunk) on
+    MONITOR_CHUNKS chunks of CLI_CARRIERS' capture held on the card, fed
+    as complex64 and as int16 wire pairs, each against the same run with
+    the plain kernels on the card (activity rows and frequencies, RSSI
+    table, the selected channel's recording); `MonitorCore` over
+    `sharded_wideband.build` on 8 shards; ms a chunk of `push` and of its
+    host copies; then `cli monitor --n-chan 2560 --headless` on the CLI's
+    30.72 MHz WAV, the card against --device cpu."""
+    from supersdr_tpu_torch.parallel import sharded_wideband as sw
+    from supersdr_tpu_torch.runtime import wideband as wb
+    cfg = wb.WidebandConfig(**HEADLINE, **wb.PROFILES["fast"])
+    if not wb._planar_active(cfg):
+        raise AssertionError("the monitor's HEADLINE config is not planar")
+    n = cfg.chunk_in
+    z = _wide_capture_dev(n * MONITOR_CHUNKS, cfg.fs_in, cfg.n_chan, device)
+    f32 = [z[i * n:(i + 1) * n] for i in range(MONITOR_CHUNKS)]
+    q = torch.view_as_real(z) * 32768.0
+    q = q.round().clamp(-32768, 32767).to(torch.int16)
+    i16 = [(q[i * n:(i + 1) * n, 0].contiguous(),
+            q[i * n:(i + 1) * n, 1].contiguous())
+           for i in range(MONITOR_CHUNKS)]
+    del z, q
+    want = _carrier_freqs(cfg)
+    out, cores = {}, {}
+    for kind, chunks in (("f32", f32), ("i16", i16)):
+        path = "monitor" if kind == "f32" else "monitor_i16"
+        core, launches, secs = _monitor_run(
+            cfg, chunks, device, os.path.join(tmp, f"mon_{kind}.wav"))
+        got = sorted(f for _, f, _ in core.activity())
+        print(f"monitor {kind} HEADLINE fast: {MONITOR_CHUNKS} chunks, "
+              f"launches {launches}, activity at {[round(f) for f in got]}"
+              f" Hz; push {', '.join(f'{s * 1e3:.2f}' for s in secs)} ms",
+              flush=True)
+        if got != want or launches["channelize_fused"] != MONITOR_CHUNKS \
+                or launches["chain_tail"] != MONITOR_CHUNKS:
+            raise AssertionError(f"monitor {kind} missed its carriers or "
+                                 f"its kernels")
+        with _PlainKernels():
+            plain, pl, _ = _monitor_run(
+                cfg, chunks, device, os.path.join(tmp, f"mon_{kind}_p.wav"))
+        if any(pl.values()):
+            raise AssertionError(f"monitor plain run launched {pl}")
+        _same_activity(f"monitor {kind} kernels vs plain", core, plain,
+                       TOL_RSSI_DB)
+        snr = _wav_snr(os.path.join(tmp, f"mon_{kind}_p.wav"),
+                       os.path.join(tmp, f"mon_{kind}.wav"))
+        print(f"monitor {kind}: selected channel "
+              f"{core.freqs[core.selected]:+.0f} Hz recorded, kernels vs "
+              f"plain {snr:.2f} dB (tol {TOL_WAV_DB['fast']} dB)", flush=True)
+        if not snr >= TOL_WAV_DB["fast"]:
+            raise AssertionError(f"monitor {kind} recording disagrees")
+        out[path] = {"launches": launches}
+        cores[kind] = core
+        del plain
+        torch.cuda.empty_cache()
+    # the sharded pipeline's process fn, unmodified
+    proc = sw.build(cfg, sw.make_mesh(MESH_D, device))
+    params = cores["f32"].params
+
+    def process_fn(p, st, iq):
+        return proc(p, st, iq)
+    process_fn.channel_order = proc.channel_order
+    mesh, launches, secs = _monitor_run(cfg, f32, device,
+                                        os.path.join(tmp, "mon_mesh.wav"),
+                                        process_fn=process_fn, params=params)
+    got = sorted(f for _, f, _ in mesh.activity())
+    print(f"monitor mesh {MESH_D} shards ({proc.tier}, factors "
+          f"{proc.planar_factors}): launches {launches}, activity at "
+          f"{[round(f) for f in got]} Hz; push "
+          f"{', '.join(f'{s * 1e3:.2f}' for s in secs)} ms", flush=True)
+    if got != want or launches["halo"] != MONITOR_CHUNKS \
+            or launches["channelize_fused"] != MONITOR_CHUNKS:
+        raise AssertionError("the monitor over the mesh missed its carriers")
+    out["monitor_mesh"] = {"launches": launches}
+    del mesh, cores
+    torch.cuda.empty_cache()
+    # push, and of it the host copies, over chunks after two warm-up ones
+    from supersdr_tpu_torch.apps.monitor import MonitorCore
+    core = MonitorCore(cfg, thresh_db=MONITOR_THRESH_DB, device=device)
+    core.start_recording(os.path.join(tmp, "mon_t.wav"))
+    core.push(f32[0])
+    core.push(f32[1])
+    secs, host = [], []
+    for i in range(6):
+        with _HostClock() as hc:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            core.push(f32[i % MONITOR_CHUNKS])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        host.append(hc.s)
+    core.stop_recording()
+    print(f"time monitor push HEADLINE fast (recording one channel): "
+          f"{_pcts(secs)}; of it the host copies (RSSI row means "
+          f"{cfg.n_chan} floats, the selected row "
+          f"{cfg.chunk_per_chan * 4} floats) {_pcts(host)}", flush=True)
+    out["push_ms"] = (float(np.median(secs)) * 1e3,
+                      float(np.median(host)) * 1e3)
+    del core, f32, i16
+    torch.cuda.empty_cache()
+    # the CLI at the reference's defaults: chan-major, no kernel; on the
+    # WAV phase_cli wrote
+    wide = os.path.join(tmp, "wide.wav")
+    if not os.path.exists(wide):
+        from supersdr_tpu_torch.io import wav
+        wav.write_kiwi_iq_wav(wide, _wide_capture(
+            cfg.n_chan * CLI_WIDE_FRAMES + 1024, cfg.fs_in, cfg.n_chan,
+            device), cfg.fs_in)
+    sel_khz = _carrier_freqs(cfg)[1] / 1e3
+    text, recs = {}, {}
+    for key, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        recs[key] = os.path.join(tmp, f"mon_cli_{key}.wav")
+        buf = io.StringIO()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            _cli(["monitor", wide, "--n-chan", cfg.n_chan, "--headless",
+                  "--thresh", MONITOR_THRESH_DB, "--select", sel_khz,
+                  "--record", recs[key], "--print-every", 1, *extra])
+        wall = time.perf_counter() - t0
+        text[key] = [ln for ln in buf.getvalue().splitlines()
+                     if _MON_ROW.match(ln)]
+        print(f"cli monitor --n-chan {cfg.n_chan} {key}: {wall:.2f} s wall, "
+              f"launches {_counts()}, {len(text[key])} activity lines",
+              flush=True)
+    same = text["card"] == text["cpu"]
+    rows = [_MON_ROW.match(ln).group(1, 2) for ln in text["card"]] == \
+        [_MON_ROW.match(ln).group(1, 2) for ln in text["cpu"]]
+    snr = _wav_snr(recs["cpu"], recs["card"])
+    print(f"cli monitor: activity lines {'identical' if same else 'differ'}"
+          f" (rows and frequencies {'equal' if rows else 'DIFFER'}), "
+          f"recording card vs cpu {snr:.2f} dB (tol {TOL_WAV_DB[None]} dB)",
+          flush=True)
+    if not (rows and len(text["card"]) >= 6 and snr >= TOL_WAV_DB[None]):
+        raise AssertionError("cli monitor disagrees with the CPU")
+    return out
+
+
+class _Tty:
+    """A terminal on stdin, so `kiwi --tui` takes its keys from
+    `live_tui.stdin_keys` (a key script here)."""
+
+    def isatty(self):
+        return True
+
+
+def _kiwi_tui(tmp: str, key: str, extra: list) -> tuple:
+    """`cli kiwi --tui` against the fake KiwiSDR on localhost with
+    LIVE_KEYS; returns (the recorded WAV's path, frames rendered)."""
+    from supersdr_tpu_torch.apps import live_tui
+    from supersdr_tpu_torch.io.fake_kiwi import FakeKiwiConfig, FakeKiwiServer
+    fs = 12_000
+    t = np.arange(512 * (LIVE_FRAMES + 8)) / fs
+    iq = (0.2 * np.exp(2j * np.pi * 1000 * t)
+          + 0.1 * np.exp(2j * np.pi * 2500 * t)).astype(np.complex64)
+    server = FakeKiwiServer(FakeKiwiConfig(
+        iq_source=iq, n_frames=LIVE_FRAMES + 8, audio_rate=fs,
+        audio_rate_true=float(fs))).start()
+    wav_out = os.path.join(tmp, f"tui_{key}.wav")
+    frames, keys = [], iter(LIVE_KEYS)
+    saved = (live_tui.ansi_render, live_tui.stdin_keys, sys.stdin)
+    live_tui.ansi_render = frames.append
+    live_tui.stdin_keys = lambda *a, **k: (lambda: next(keys, []))
+    sys.stdin = _Tty()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _cli(["kiwi", "-s", "127.0.0.1", "-p", server.port, "-f",
+                  "14200", "--mode", "USB", "-o", wav_out, "--frames",
+                  LIVE_FRAMES, "--tui", *extra])
+    finally:
+        live_tui.ansi_render, live_tui.stdin_keys, sys.stdin = saved
+        server.stop()
+    return wav_out, frames
+
+
+def phase_live(device, tmp: str) -> dict:
+    """The live interactive session: `cli kiwi --tui` against the fake
+    KiwiSDR with keys injected (SUB on, SUB to the centre, AM, a retune,
+    SUB off), the card against --device cpu; `LiveTui.step` (MAIN + SUB
+    and the native waterfall) timed over SESSION_CHUNKS chunks of 2048
+    samples at 12 kHz against the chunk's budget; `run_tui_wav` on the
+    off-air-style fixture, the card against the CPU."""
+    from supersdr_tpu_torch.apps import live_tui, tui
+    from supersdr_tpu_torch.control.panadapter import Panadapter
+    from supersdr_tpu_torch.control.receiver import Receiver
+    from supersdr_tpu_torch.io import wav
+    from supersdr_tpu_torch.runtime import chain
+    out = {}
+    _reset_counts()
+    card, frames = _kiwi_tui(tmp, "card", [])
+    out["launches"] = _counts()
+    cpu, _ = _kiwi_tui(tmp, "cpu", ["--device", "cpu"])
+    a, ra = wav.read_audio_wav(card)
+    b, rb = wav.read_audio_wav(cpu)
+    subs = sum(f[1].startswith(" SUB") for f in frames)
+    snr = _snr_db(torch.from_numpy(b.astype(np.float64)),
+                  torch.from_numpy(a.astype(np.float64))) \
+        if a.shape == b.shape else -1.0
+    print(f"live cli kiwi --tui {LIVE_FRAMES} frames: audio {a.shape} at "
+          f"{ra} Hz, {len(frames)} frames rendered ({subs} with the SUB "
+          f"line), launches {out['launches']}; card vs cpu {snr:.2f} dB "
+          f"(tol {TOL_WAV_DB[None]} dB)", flush=True)
+    if not (ra == rb == 48_000 and a.shape == b.shape and subs
+            and a.shape[0] >= LIVE_FRAMES * 512 * 4 - 4 * 2048
+            and snr >= TOL_WAV_DB[None]):
+        raise AssertionError("live kiwi --tui disagrees with the CPU")
+    # LiveTui.step with SUB on
+    fs = 12_000
+    cfg = chain.ChainConfig(mode="USB", iq_rate=fs, audio_rate=48_000,
+                            chunk=2048, os_block=2048)
+    rx = Receiver(cfg=cfg, center_freq_khz=14200.0, freq=14200.0,
+                  radio_mode="USB")
+    s = live_tui.LiveTui.create(rx, Panadapter(zoom=10, freq_khz=14200.0),
+                                width=100, wf_height=18)
+    s.pan.set_freq_zoom(14202.0, s.pan.zoom)
+    s.handle_key("y")
+    if {rx.device.type, s.rx_sub.device.type, s._win.device.type} \
+            != {device.type}:
+        raise AssertionError("the live session is not on the card")
+    rng = np.random.default_rng(23)
+    n = 2048
+    blk = (0.05 * np.exp(2j * np.pi * 1000 * np.arange(n) / fs)
+           + 0.002 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+           ).astype(np.complex64)
+    times, dual = [], []
+    orig = s._dual_process
+
+    def timed_dual(iq, orig=orig):
+        t0 = time.perf_counter()
+        r = orig(iq)
+        dual.append(time.perf_counter() - t0)
+        return r
+    s._dual_process = timed_dual
+    for i in range(SESSION_CHUNKS + 8):
+        t0 = time.perf_counter()
+        o = s.step(blk)
+        times.append(time.perf_counter() - t0)
+    times, dual = times[8:], dual[8:]
+    budget = n / fs
+    print(f"latency LiveTui.step 12 kHz MAIN + SUB + waterfall, "
+          f"{SESSION_CHUNKS} chunks of {n}: {_pcts(times)}; of it "
+          f"DualChain {_pcts(dual)}; against the {budget * 1e3:.1f} ms "
+          f"budget", flush=True)
+    if not (np.isfinite(o).all() and o.shape == (4 * n, 2)
+            and len(s.model.history) == 18):
+        raise AssertionError("LiveTui.step outputs are wrong")
+    out["step_ms"] = (float(np.percentile(times, 50)) * 1e3,
+                      float(np.percentile(times, 99)) * 1e3)
+    s._dual_process = orig
+    device_share("LiveTui.step 12 kHz", lambda: s.step(blk), calls=20,
+                 rows=6)
+    # run_tui_wav, card against CPU
+    fixture = "tests/fixtures/kiwi_am_offair_12k.wav"
+    hist = {}
+    for key, dev in (("card", None), ("cpu", "cpu")):
+        with contextlib.redirect_stdout(io.StringIO()):
+            m = tui.run_tui_wav(fixture, mode="AM", width=96, height=40,
+                                speed=1e9, device=dev)
+        hist[key] = np.stack(m.history).astype(np.uint8).astype(int)
+    a, b = hist["card"], hist["cpu"]
+    same = float(np.mean(a == b)) if a.shape == b.shape else 0.0
+    print(f"live run_tui_wav fixture: history {a.shape}, palette index "
+          f"equal in {same * 100:.3f} % of cells, max step "
+          f"{int(np.abs(a - b).max()) if same else -1}", flush=True)
+    if not (same >= 0.999 and np.abs(a - b).max() <= 1):
+        raise AssertionError("run_tui_wav disagrees with the CPU")
+    return out
+
+
+def phase_checkpoint(device, tmp: str, seed: int = 24) -> dict:
+    """Stream checkpoint/resume on the card: HEADLINE fast planar, 4 chunks
+    straight against 2 chunks, `save_state`, `load_state` into a fresh
+    `init_state`, 2 more: audio and RSSI bit-identical; the same for one
+    receiver's `runtime/chain` (USB, 12 kHz, 2048 samples a chunk)."""
+    from supersdr_tpu_torch.ops import cx
+    from supersdr_tpu_torch.runtime import chain
+    from supersdr_tpu_torch.runtime import checkpoint as ckpt
+    from supersdr_tpu_torch.runtime import wideband as wb
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cfg = wb.WidebandConfig(**HEADLINE, **wb.PROFILES["fast"])
+    params = wb.make_params(cfg, device=device)
+    n = cfg.chunk_in
+    chunks = [cx.CX(*(torch.randn(n, generator=gen, device=device) * 0.05
+                      for _ in range(2))) for _ in range(4)]
+
+    def run(st, cs):
+        outs = []
+        for c in cs:
+            st, o = wb.process(cfg, params, st, c)
+            outs.append((o.audio, o.rssi))
+        return st, outs
+    _reset_counts()
+    _, straight = run(wb.init_state(cfg, device=device), chunks)
+    st, first = run(wb.init_state(cfg, device=device), chunks[:2])
+    path = os.path.join(tmp, "wb_state.npz")
+    t0 = time.perf_counter()
+    ckpt.save_state(path, st, meta={"chunks": 2})
+    t1 = time.perf_counter()
+    st2 = ckpt.load_state(path, wb.init_state(cfg, device=device))
+    t2 = time.perf_counter()
+    _, rest = run(st2, chunks[2:])
+    _sync(device)
+    launches = _counts()
+    same = [bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+            for a, b in zip(straight, first + rest)]
+    leaves = ckpt.checkpoint_meta(path)["n_leaves"]
+    print(f"checkpoint wideband HEADLINE fast: {leaves} leaves, "
+          f"{os.path.getsize(path) / 1e6:.1f} MB, save {t1 - t0:.3f} s, "
+          f"load {t2 - t1:.3f} s, on {st2.chain.agc.gain_db.device}; "
+          f"launches {launches}; resumed chunks bit-identical {same}",
+          flush=True)
+    if not all(same) or launches["channelize_fused"] != 8 \
+            or launches["chain_tail"] != 8 \
+            or st2.chain.agc.gain_db.device != params.W_pfb.device:
+        raise AssertionError("the resumed wideband stream differs")
+    del straight, first, rest, chunks
+    torch.cuda.empty_cache()
+    ccfg = chain.ChainConfig(mode="USB", iq_rate=12_000, audio_rate=48_000,
+                             chunk=2048, os_block=2048)
+    cp = chain.make_params(ccfg, freq_offset_hz=300.0, device=device)
+    iq = torch.complex(torch.randn(4 * 2048, generator=gen, device=device),
+                       torch.randn(4 * 2048, generator=gen, device=device)
+                       ) * 0.1
+    cs = [iq[i * 2048:(i + 1) * 2048] for i in range(4)]
+
+    def crun(st, cs):
+        outs = []
+        for c in cs:
+            st, o = chain.process(ccfg, cp, st, c)
+            outs.append((o.audio, o.rssi))
+        return st, outs
+    _, straight = crun(chain.init_state(ccfg, device=device), cs)
+    st, first = crun(chain.init_state(ccfg, device=device), cs[:2])
+    path = os.path.join(tmp, "chain_state.npz")
+    ckpt.save_state(path, st)
+    _, rest = crun(ckpt.load_state(path, chain.init_state(ccfg,
+                                                          device=device)),
+                   cs[2:])
+    same = [bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+            for a, b in zip(straight, first + rest)]
+    print(f"checkpoint chain one receiver: resumed chunks bit-identical "
+          f"{same}", flush=True)
+    if not all(same):
+        raise AssertionError("the resumed chain stream differs")
+    return {"launches": launches}
+
+
+def _trace_kernels(path: str) -> dict:
+    """Kernel events of a Chrome trace: name → count."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    return names
+
+
+def phase_trace(device, tmp: str, seed: int = 25) -> dict:
+    """`utils.profiling.trace` around one `process_n` call (2 chunks) at
+    HEADLINE fast: the written trace names the channelizer and the FIR
+    tail kernels; the traced call's time beside an untraced one."""
+    from supersdr_tpu_torch.runtime import wideband as wb
+    from supersdr_tpu_torch.utils import profiling
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cfg = wb.WidebandConfig(**HEADLINE, **wb.PROFILES["fast"])
+    params = wb.make_params(cfg, device=device)
+    f32, _ = _headline_inputs(cfg, gen, device)
+
+    def call():
+        wb.process_n(cfg, params, wb.init_state(cfg, device=device), f32)
+        torch.cuda.synchronize()
+    call()
+    plain = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        call()
+        plain.append(time.perf_counter() - t0)
+    logdir = os.path.join(tmp, "trace")
+    _reset_counts()
+    t0 = time.perf_counter()
+    with profiling.trace(logdir):
+        t1 = time.perf_counter()
+        call()
+        traced = time.perf_counter() - t1
+    whole = time.perf_counter() - t0
+    launches = _counts()
+    files = profiling.trace_files(logdir)
+    kernels = _trace_kernels(files[-1]) if files else {}
+    chan = sum(v for k, v in kernels.items() if "channelize_mma_kernel" in k)
+    tail = sum(v for k, v in kernels.items() if "chain_tail_fir_kernel" in k)
+    print(f"trace process_n HEADLINE fast (2 chunks): {len(files)} file(s), "
+          f"{os.path.getsize(files[-1]) / 1e6 if files else 0:.2f} MB, "
+          f"{sum(kernels.values())} kernel events of {len(kernels)} names, "
+          f"channelize_mma_kernel {chan}, chain_tail_fir_kernel {tail}; "
+          f"the call {traced * 1e3:.2f} ms traced ({whole * 1e3:.1f} ms "
+          f"with the profiler's start and the trace's write) against "
+          f"{' / '.join(f'{p * 1e3:.2f}' for p in plain)} ms untraced; "
+          f"launches {launches}", flush=True)
+    if len(files) != 1 or chan != 2 or tail != 2:
+        raise AssertionError("the trace does not name the kernels")
+    return {"launches": launches}
+
+
 def fold_library(run: dict, iters: int = 5, seed: int = 15) -> float:
     """The fold as one library call at HEADLINE: `F.conv1d(groups=M)`
     (cuDNN) on the real and imaginary parts as one batch of two, the
@@ -2214,9 +2726,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cli_runs = phase_cli(dev, tmp)
         session = phase_session(dev, tmp)
+        torch.cuda.empty_cache()
+        monitor = phase_monitor(dev, tmp)
+        live = phase_live(dev, tmp)
+        checkpoint = phase_checkpoint(dev, tmp)
+        torch.cuda.empty_cache()
+        traced = phase_trace(dev, tmp)
     paths = {"planar": main_path, "chanmajor": chan, "sharded": sharded,
              "tmajor": tmajor, "mesh": mesh, "mesh_tiers": mesh_tiers,
-             **cli_runs, "session": session}
+             **cli_runs, "session": session, "monitor": monitor["monitor"],
+             "monitor_i16": monitor["monitor_i16"],
+             "monitor_mesh": monitor["monitor_mesh"], "live": live,
+             "checkpoint": checkpoint, "trace": traced}
     bounds = kernel_bounds(times["halo_bound"])
     kernels = [
         _summary("channelize_fused", "channelize_fused.cu",

@@ -13,13 +13,15 @@ knob semantics. The session wires together:
   with optional rigctld emulation (fldigi/wsjtx can tune us) and CAT sync
   to a physical radio via a hamlib rigctld (LinkController).
 
-The receiver runs on `args.device` (None: the current CUDA device). The
-interactive panadapter (`--tui`) is not ported yet (ROADMAP queue 1,
-slice 7) and raises.
+The receiver runs on `args.device` (None: the current CUDA device), and
+so do the interactive panadapter's (`--tui`, `run_kiwi_tui`: the live
+waterfall, keyboard tuning, dual RX and the server book over
+`apps/live_tui.LiveTui`).
 """
 
 from __future__ import annotations
 
+import queue
 import threading
 import time
 
@@ -244,7 +246,231 @@ def run_kiwi_session(args) -> int:
 
 
 def run_kiwi_tui(args) -> int:
-    """The live interactive panadapter (`kiwi --tui`) is not ported yet."""
-    raise NotImplementedError(
-        "kiwi --tui (apps/live_tui) is not ported yet: ROADMAP queue 1, "
-        "slice 7 (apps/{tui, live_tui, monitor})")
+    """Live interactive panadapter (reference supersdr.py:179-1073): IQ
+    stream → native chains + FFT waterfall, keyboard tuning/mode/zoom,
+    dual RX (y/Y/n), CAT sync — rendered as ANSI in the terminal. The
+    receivers and the native waterfall run on `args.device` (None: the
+    current CUDA device)."""
+    import sys
+
+    from supersdr_tpu_torch.apps.live_tui import (LiveTui, ansi_render,
+                                                  stdin_keys)
+
+    try:
+        client, first, kiwi_rate, true_rate, _ = _gate_and_connect(args)
+    except KiwiGateError as e:
+        print(f"refusing to connect: {e}")
+        return 1
+
+    mode = (args.mode or get_auto_mode(args.freq)).upper()
+    cfg = _session_chain_cfg(mode, kiwi_rate, 2048)
+    chunk = cfg.chunk
+    rx = Receiver(cfg=cfg, center_freq_khz=args.freq, freq=args.freq,
+                  radio_mode=mode, device=getattr(args, "device", None))
+    pan = Panadapter(zoom=args.zoom, freq_khz=args.freq)
+    cat = None
+    if args.radioserver:
+        c = CatClient(args.radioserver, args.radioport)
+        cat = c if c.cat_ok else None
+    import shutil
+    term = shutil.get_terminal_size((100, 30))
+    session = LiveTui.create(rx, pan, width=min(term.columns - 2, 160),
+                             wf_height=max(4, term.lines - 7), cat=cat)
+
+    # mutable link state so interactive server switching can swap the
+    # live SND/W/F clients between chunks (reference connect_new flow,
+    # supersdr.py:743-796)
+    st = {"client": client, "pending": [first], "chunk": chunk,
+          "rate": kiwi_rate, "buf": np.zeros(0, np.complex64),
+          "wf": None}
+
+    # wide-span waterfall from the server's W/F stream (the reference's
+    # kiwi_waterfall loop, utils:879-898); native IQ rows are the
+    # fallback when a second channel slot isn't available
+    from supersdr_tpu_torch.apps.live_tui import wf_row_to_color
+    wf_state = {"zoom": pan.zoom, "counter": pan.counter}
+
+    def _start_wf(host, port, password, timestamp):
+        try:
+            wfc = KiwiClient(host, port, password, stream_type="W/F",
+                             timestamp=timestamp)
+            wfc.connect()
+            wfc.setup_waterfall(zoom=pan.zoom, counter=pan.counter)
+        except (KiwiError, OSError):
+            return None
+        session.native_waterfall = False
+
+        def _wf_loop():
+            while True:
+                try:
+                    msg = wfc.read()
+                except (KiwiError, OSError, ValueError):
+                    return
+                if st["wf"] is not wfc:
+                    return  # superseded by a server switch
+                if isinstance(msg, kp.WfFrame):
+                    session.model.push_row(wf_row_to_color(
+                        wfc.wf_bins(msg), wf_state["zoom"],
+                        session.model.wf_delta_low_db,
+                        session.model.wf_delta_high_db))
+                    try:
+                        wfc.keepalive()
+                    except OSError:
+                        pass
+
+        threading.Thread(target=_wf_loop, daemon=True).start()
+        return wfc
+
+    st["wf"] = _start_wf(args.kiwiserver, args.kiwiport, args.password,
+                         client.timestamp)
+
+    def wf_sync():
+        """Re-tune the W/F stream when zoom/span keys moved the span
+        (reference set_freq_zoom → SET zoom=.. start=.., utils:815-845)."""
+        if st["wf"] is None:
+            return
+        if (pan.zoom, pan.counter) != (wf_state["zoom"], wf_state["counter"]):
+            wf_state["zoom"], wf_state["counter"] = pan.zoom, pan.counter
+            try:
+                st["wf"].send(kp.set_zoom_start(pan.zoom, pan.counter))
+            except OSError:
+                pass
+
+    # -------- interactive server switching (LiveTui `K` menu)
+    from supersdr_tpu_torch.control.kiwilist import KiwiList
+    session.server_book = KiwiList(getattr(args, "kiwi_list", None)
+                                   or "kiwi.list")
+
+    def do_switch(entry):
+        """Connect to the book entry; on any failure the current server
+        keeps streaming untouched (connect-before-close is strictly
+        safer than the reference's close-then-revert, supersdr.py:743-796
+        — no audible gap on a failed switch)."""
+        host, port, password = entry[0], entry[1], entry[2]
+        try:
+            status = KiwiStatus.fetch(host, port)
+            status.gate()
+        except KiwiGateError as e:
+            return False, f"switch refused: {e} — staying"
+        except OSError:
+            pass  # old firmware without /status
+        try:
+            nc = KiwiClient(host, port, password)
+            nc.connect()
+            nc.setup_sound("IQ", -5000, 5000, rx.freq)
+            nf = nc.wait_for_stream()
+        except (KiwiError, OSError) as e:
+            return False, f"switch failed ({type(e).__name__}) — staying"
+        new_rate = nc.info.audio_rate or 12000
+        old = st["client"]
+        if new_rate != st["rate"]:
+            # different IQ rate: rebuild the chain cfg, reset the stream
+            # state (the reference rebuilds kiwi_sound outright)
+            cfg2 = _session_chain_cfg(rx.radio_mode, new_rate, 2048)
+            rx.cfg = cfg2
+            rx.state = None
+            rx.refresh_params()
+            st["chunk"] = cfg2.chunk
+            st["rate"] = new_rate
+        st["client"] = nc
+        st["pending"] = [nf]
+        st["buf"] = np.zeros(0, np.complex64)
+        try:
+            old.close()
+        except OSError:
+            pass
+        if st["wf"] is not None:
+            try:
+                st["wf"].close()
+            except OSError:
+                pass
+        st["wf"] = _start_wf(host, port, password, nc.timestamp)
+        return True, f"switched to {host}:{port}"
+
+    session.switch_server = do_switch
+
+    frames_seen = [0]
+
+    def source():
+        while True:
+            if args.frames and frames_seen[0] >= args.frames:
+                return
+            cli = st["client"]
+            frame = st["pending"].pop() if st["pending"] else None
+            if frame is None:
+                try:
+                    msg = cli.read()
+                except (KiwiError, OSError):
+                    if st["client"] is not cli:
+                        continue  # server switch closed this client
+                    return
+                if not isinstance(msg, kp.SndFrame):
+                    continue
+                frame = msg
+            kind, gps, z = cli.snd_samples(frame)
+            if kind != "iq":
+                continue
+            frames_seen[0] += 1
+            try:
+                cli.keepalive()
+            except OSError:
+                pass
+            st["buf"] = np.concatenate([st["buf"],
+                                        z.astype(np.complex64) / 32768.0])
+            while len(st["buf"]) >= st["chunk"]:
+                yield st["buf"][:st["chunk"]]
+                st["buf"] = st["buf"][st["chunk"]:]
+
+    wav_q = None
+    if args.output:
+        rec_sink = audio_sink.WavFileSink(args.output,
+                                          audio_rate=cfg.audio_rate)
+        # the WAV sink's pump thread waits on a queue for each chunk (the
+        # reference's pump spins on an empty list, holding the GIL the
+        # session's own thread needs)
+        wav_q = queue.Queue()
+
+        def pull():
+            try:
+                return wav_q.get(timeout=0.05)
+            except queue.Empty:
+                return None
+        rec_sink.start(pull)
+        sink = wav_q.put
+    else:
+        sd = audio_sink.SoundDeviceSink(audio_rate=cfg.audio_rate,
+                                        blocksize=cfg.audio_chunk)
+        if sd.unavailable:
+            rec_sink, sink = None, None
+        else:
+            frames_q = []
+            sd.start(lambda: frames_q.pop(0) if frames_q else None)
+            rec_sink, sink = sd, frames_q.append
+
+    # tests inject a scripted key source via args.inject_keys
+    keys = getattr(args, "inject_keys", None)
+    if keys is None:
+        keys = stdin_keys() if sys.stdin.isatty() else (lambda: [])
+    try:
+        session.run(source(), keys=keys, sink=sink,
+                    render=ansi_render, on_tick=wf_sync)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if hasattr(keys, "restore"):
+            keys.restore()
+        # let the WAV sink write every chunk before closing it
+        deadline = time.monotonic() + 10.0
+        while wav_q is not None and not wav_q.empty() \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        if rec_sink is not None:
+            out = rec_sink.stop()
+            if out:
+                print(f"audio written to {out}")
+        if st["wf"] is not None:
+            st["wf"].close()
+        st["client"].close()
+    print(f"session done: {frames_seen[0]} frames, "
+          f"RSSI {rx.smoothed_rssi:.1f} dB")
+    return 0

@@ -10,14 +10,18 @@ for the rigctld CAT radio):
              and LINRAD-style averaging
   wideband   wideband IQ WAV → polyphase channelizer → per-channel audio
   kiwi       live KiwiSDR client: stream audio to a WAV/sound device,
-             optional rigctld emulation for fldigi/wsjtx
+             optional rigctld emulation for fldigi/wsjtx; `--tui` is the
+             interactive terminal panadapter (live waterfall, keyboard
+             tuning, dual RX, server book)
+  tui        terminal panadapter over a recorded IQ WAV
+  monitor    wideband monitor: the channelized band's RSSI and activity,
+             select a channel to record
 
 plus `--device`: the computing subcommands run on the current CUDA device
 unless given another (`--device cpu` runs the plain versions on the CPU);
-with no card and no `--device` they raise. `tui`, `monitor`, `kiwi --tui`
-and `bench` are not ported yet and raise `NotImplementedError` naming
-their ROADMAP items. `wideband` also prints how many trailing samples
-(less than one chunk) it did not process.
+with no card and no `--device` they raise. `bench` is not ported yet and
+raises `NotImplementedError` naming its ROADMAP item. `wideband` also
+prints how many trailing samples (less than one chunk) it did not process.
 """
 
 from __future__ import annotations
@@ -129,13 +133,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "blocks of latency)")
     k.add_argument("--tui", action="store_true",
                    help="interactive terminal panadapter (live waterfall, "
-                        "keyboard tuning, dual RX, CAT sync); not ported "
-                        "yet")
+                        "keyboard tuning, dual RX, CAT sync)")
     _add_device(k)
 
     tu = sub.add_parser("tui", help="terminal panadapter over a recorded "
-                                    "IQ WAV (ANSI spectrum + waterfall); "
-                                    "not ported yet")
+                                    "IQ WAV (ANSI spectrum + waterfall)")
     tu.add_argument("input")
     tu.add_argument("--mode", default="AM")
     tu.add_argument("-f", "--freq", type=float, default=14200.0)
@@ -147,10 +149,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="waterfall history rows (0 = fit terminal)")
     tu.add_argument("--speed", type=float, default=4.0,
                     help="playback speed multiple of realtime")
+    _add_device(tu)
 
     mo = sub.add_parser("monitor", help="wideband monitor: channelized "
-                        "band RSSI/activity view + select-to-audio; not "
-                        "ported yet")
+                        "band RSSI/activity view + select-to-audio")
     mo.add_argument("input", nargs="?", default=None,
                     help="wideband IQ WAV (omit to stream live IQ from "
                          "--kiwiserver)")
@@ -175,6 +177,7 @@ def build_parser() -> argparse.ArgumentParser:
     mo.add_argument("-p", "--kiwiport", type=int, default=8073)
     mo.add_argument("-w", "--password", default="")
     mo.add_argument("-f", "--freq", type=float, default=10000.0)
+    _add_device(mo)
 
     sub.add_parser("bench", help="run the single-chip benchmark; not "
                                  "ported yet")
@@ -330,14 +333,18 @@ def cmd_bench(args) -> int:
 
 
 def cmd_monitor(args) -> int:
-    raise NotImplementedError(
-        "monitor (apps/monitor) is not ported yet: ROADMAP queue 1 #9, "
-        "slice 7")
+    from supersdr_tpu_torch.apps.monitor import run_monitor
+
+    return run_monitor(args)
 
 
 def cmd_tui(args) -> int:
-    raise NotImplementedError(
-        "tui (apps/tui) is not ported yet: ROADMAP queue 1 #9, slice 7")
+    from supersdr_tpu_torch.apps.tui import run_tui_wav
+
+    run_tui_wav(args.input, mode=args.mode, freq_khz=args.freq,
+                fps=args.fps, width=args.width, height=args.height,
+                speed=args.speed, device=args.device)
+    return 0
 
 
 def main(argv=None) -> int:

@@ -20,7 +20,9 @@ COPIES = ["io/kiwi_protocol", "io/websocket", "io/kiwi_client", "io/status",
           "display/colormap", "display/png", "display/render",
           "control/bandplan", "control/panadapter", "control/eibi",
           "control/beacons", "control/links", "runtime/ring",
-          "runtime/governor", "runtime/engine", "native", "ops/passband"]
+          "runtime/governor", "runtime/engine", "native", "ops/passband",
+          "control/memories", "control/logbook", "control/dxcluster",
+          "control/kiwilist", "control/qrz", "io/gnss"]
 
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)supersdr_tpu(?=[.\s])", re.M)
 # the docstrings cite the upstream SuperSDR sources by file and line; the

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from supersdr_tpu_torch import _build, convert, device
-from supersdr_tpu_torch.control import receiver
+from supersdr_tpu_torch.apps import live_tui, monitor, tui
+from supersdr_tpu_torch.control import panadapter, receiver
 from supersdr_tpu_torch.ops import adpcm, channelizer, cx, spectrum
 from supersdr_tpu_torch.ops.cuda import chain_tail, channelize_fused
 from supersdr_tpu_torch.parallel import (dist_fft, mesh, pipeline,
@@ -20,6 +21,7 @@ from supersdr_tpu_torch.parallel import (dist_fft, mesh, pipeline,
 from supersdr_tpu_torch.runtime import chain, dualrx, wideband
 
 REPO = Path(__file__).resolve().parents[1]
+FIXTURE = str(REPO / "tests" / "fixtures" / "kiwi_am_offair_12k.wav")
 
 
 @pytest.mark.parametrize("module", [
@@ -53,7 +55,15 @@ REPO = Path(__file__).resolve().parents[1]
     "supersdr_tpu_torch.io.status", "supersdr_tpu_torch.io.fake_kiwi",
     "supersdr_tpu_torch.io.wav", "supersdr_tpu_torch.io.audio_sink",
     "supersdr_tpu_torch.io.rigctl", "supersdr_tpu_torch.display.colormap",
-    "supersdr_tpu_torch.display.png", "supersdr_tpu_torch.display.render"])
+    "supersdr_tpu_torch.display.png", "supersdr_tpu_torch.display.render",
+    "supersdr_tpu_torch.apps.tui", "supersdr_tpu_torch.apps.live_tui",
+    "supersdr_tpu_torch.apps.monitor", "supersdr_tpu_torch.runtime.checkpoint",
+    "supersdr_tpu_torch.utils", "supersdr_tpu_torch.utils.profiling",
+    "supersdr_tpu_torch.control.memories",
+    "supersdr_tpu_torch.control.logbook",
+    "supersdr_tpu_torch.control.dxcluster",
+    "supersdr_tpu_torch.control.kiwilist", "supersdr_tpu_torch.control.qrz",
+    "supersdr_tpu_torch.io.gnss"])
 def test_imports_without_jax(module):
     """Nothing of JAX, and nothing of the JAX package either."""
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
@@ -210,6 +220,14 @@ CONSTRUCTORS = {
         cfg=chain.ChainConfig(**_SMALL_CHAIN), device=d).params.P_interp,
     "dualrx.DualChain": lambda d: dualrx.DualChain(
         chain.ChainConfig(**_SMALL_CHAIN), device=d).state.phase,
+    "monitor.MonitorCore": lambda d: monitor.MonitorCore(
+        wideband.WidebandConfig(fs_in=12_000, n_chan=8, chunk_in=3000,
+                                audio_rate=6000), device=d).params.W_pfb,
+    "live_tui.LiveTui": lambda d: live_tui.LiveTui.create(
+        receiver.Receiver(cfg=chain.ChainConfig(**_SMALL_CHAIN), device=d),
+        panadapter.Panadapter())._win,
+    "tui.run_tui_wav": lambda d: tui.run_tui_wav(
+        FIXTURE, device=d, width=40, height=4, speed=1e9).rx.params.P_interp,
 }
 
 
