@@ -52,6 +52,18 @@ Phases, each printed as it runs; any failure exits non-zero:
      the serial chain on the card and the same call on the CPU; the halo
      kernel timed beside an empty launch, its plain version and the slice
      copy PyTorch would make;
+  7b. the mesh across processes on the one card (`procs`): 2, then 4
+     ranks spawned by `parallel.launch.spawn` (a gloo group for the
+     handshakes), each loading the built library: every primitive of
+     `collectives.ProcessTransport` against the one-process transport bit
+     for bit, the halo kernel pushing into the other ranks' buffers over
+     CUDA IPC (launches by rank), the ordering under a rank held back by
+     `torch.cuda._sleep` over three chained calls, the halo's µs a call
+     across processes, SHARDED over the ranks against one process (≥
+     TOL_SNR_DB["cpu"] or bit-identical) and, over 2 ranks, HEADLINE fast
+     through `sharded_wideband` on 8 shards against the one-process mesh
+     (gathered rows, bit for bit); ms a call and a chunk against one
+     process;
   8. the time-major tier off the planar coupling (TMAJOR: the HEADLINE
      config with 16200 frames a chunk, both profiles, and a 33-tap passband
      that has no in-tail FIR block): launch counts, audio against the
@@ -1704,6 +1716,488 @@ def phase_mesh_parts(device, seed: int = 14) -> None:
         raise AssertionError("pipeline disagrees with the serial wideband")
     print(dryrun.dryrun_multichip(MESH_D, device), flush=True)
 
+# the transport across processes on the one card: ranks spawned by
+# `parallel.launch.spawn`, every one on the card, joined by a gloo group.
+# PROCS_D time shards over 2 and 4 processes; the halo's SHARDED passband
+# exchange (8 receivers × 131072 complex samples a shard, 256 of history)
+PROCS_D = 8
+PROCS_WORLDS = (2, 4)
+PROCS_DELAY_CYCLES = 40_000_000       # ~20 ms of one SM's clock
+
+
+def _procs_inputs(device, seed: int = 21) -> dict:
+    """The primitives' global inputs on PROCS_D shards, the same in every
+    process (a seeded CPU generator, then the card)."""
+    g = torch.Generator().manual_seed(seed)
+    D = PROCS_D
+
+    def f32(*shape):
+        return torch.randn(shape, generator=g).to(device)
+
+    def i16(*shape):
+        return (torch.randn(shape, generator=g) * 3000).to(
+            torch.int16).to(device)
+    return {
+        "halo": torch.complex(f32(8, D, 4096), f32(8, D, 4096)),
+        "head": torch.complex(f32(8, 256), f32(8, 256)),
+        "f32": f32(64, D, 512), "head_f32": f32(64, 16),
+        "pair": (i16(2, 4, D, 256), i16(2, 4, D, 256)),
+        "ctx": f32(16, D, 64), "summary": f32(16, D, 1),
+        "a2a": f32(D, 48, 32).to(torch.bfloat16), "bcast": f32(D, 7),
+        "send": f32(D, 5, 3),
+        "state": (f32(8), f32(8, 256), f32(8, 3).to(torch.int16)),
+    }
+
+
+def _procs_prims(comm, x: dict) -> dict:
+    """Every primitive through `comm` on its process's block of `x`."""
+    def block(t, axis):
+        d = t.shape[axis] // comm.world
+        return t.narrow(axis, comm.rank * d, d)
+    out = {
+        "halo": comm.left_halo(block(x["halo"], -2), 256, head0=x["head"]),
+        "halo_f32": comm.left_halo(block(x["f32"], -2), 16, 0.5,
+                                   head0=x["head_f32"]),
+        "pair": comm.left_halo(tuple(block(p, -2) for p in x["pair"]), 9,
+                               -3.0),
+        # 300 samples of 64-sample shards: five hops, across ranks
+        "context": comm.left_context(block(x["ctx"], -2), 300, -torch.inf),
+        "summaries": comm.gather_summaries(block(x["summary"], -2)),
+        "index": comm.shard_index(block(x["summary"], -2)),
+        "a2a_01": comm.all_to_all(block(x["a2a"], 0), 0, 1),
+        "a2a_10": comm.all_to_all(block(x["a2a"], 0), 1, 0),
+        "bcast": comm.broadcast_last(block(x["bcast"], 0)),
+        "send": comm.send_next(block(x["send"], 0)),
+    }
+    return {k: (torch.stack(v) if isinstance(v, tuple) else v)
+            for k, v in out.items()}
+
+
+def _procs_blocks(comm, want: dict) -> dict:
+    """This process's block of the one-process results."""
+    def block(t, axis):
+        d = t.shape[axis] // comm.world
+        return t.narrow(axis, comm.rank * d, d)
+    axes = {"halo": -2, "halo_f32": -2, "pair": -2, "context": -2,
+            "index": 0, "a2a_01": 0, "a2a_10": 0, "bcast": 0, "send": 0}
+    return {k: (block(v, axes[k]) if k in axes else v)
+            for k, v in want.items()}
+
+
+def _proc_prims(rank: int, world: int, dev) -> dict:
+    """Each primitive through the process transport on the card, "rdma"
+    (the halo kernel with peer destinations) and "ppermute" (copy_ into
+    the peers' buffers), against the plain version on the whole tensors in
+    this process (the one-process transport with plain halos,
+    `left_halo_plain`): bit for bit. Also `replicate` and `gather`.
+    Returns the halo kernel's launches and how many had peers."""
+    from supersdr_tpu_torch.ops.cuda import halo
+    from supersdr_tpu_torch.parallel import collectives, mesh
+    x = _procs_inputs(dev)
+    comm = mesh.time_mesh(PROCS_D, device=dev).comm
+    if comm.world != world:
+        raise AssertionError(f"the mesh holds {comm.world} processes, "
+                             f"not {world}")
+    want = _procs_blocks(comm, _procs_prims(collectives.Transport("ppermute"),
+                                            x))
+    n_cases, launches = 0, 0
+    for impl in ("rdma", "ppermute"):
+        before = halo.left_halo.launches
+        got = _procs_prims(comm.using(impl), x)
+        torch.cuda.synchronize()
+        launches += halo.left_halo.launches - before
+        for k, w in want.items():
+            g = got[k]
+            if g.shape != w.shape or not torch.equal(
+                    torch.view_as_real(g) if g.is_complex() else g,
+                    torch.view_as_real(w) if w.is_complex() else w):
+                raise AssertionError(f"rank {rank}/{world} {impl} {k} "
+                                     f"differs from the plain version")
+            n_cases += 1
+    mine = tuple(v + rank for v in x["state"])
+    rep = comm.replicate(mine)
+    last = tuple(v + (world - 1) for v in x["state"])
+    gat = comm.gather(x["f32"].narrow(-2, rank, 1), -2)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(rep, last)) \
+            or not torch.equal(gat, x["f32"][:, :world]):
+        raise AssertionError(f"rank {rank}/{world} replicate or gather "
+                             f"differs")
+    # rdma: halo launches 3 (halo, halo_f32, pair) + 5 (context hops);
+    # ppermute: none. Every rank launches; all but the last push to a peer
+    want_launches = 3 + 5
+    if launches != want_launches:
+        raise AssertionError(f"rank {rank}/{world}: {launches} halo "
+                             f"launches, want {want_launches}")
+    return {"cases": n_cases + 2, "launches": launches}
+
+
+def _proc_delay(rank: int, world: int, dev, rounds: int = 8) -> dict:
+    """Ordering under delay: `rounds` halo calls of the halo kernel across
+    the processes, queued with no host synchronisation between them (so
+    each receive slot is written four times while the streams fall
+    behind), one rank held back by `torch.cuda._sleep` inside each round:
+    in the first half a receiver between its wait and its read (only its
+    senders' wait on its "read_done" keeps their push two rounds later off
+    the slot it has yet to read), in the second half a sender before its
+    push (only the receiver's wait on its "pushed" keeps the read after
+    it). Then every round's output, bit for bit, against the plain version
+    on the whole input of that round. Returns the ms the host took to queue
+    the rounds and the ms until the card had run them."""
+    from supersdr_tpu_torch.parallel import collectives, mesh
+    comm = mesh.time_mesh(PROCS_D, device=dev).comm
+    plain = collectives.Transport("ppermute")
+    x = _procs_inputs(dev)
+    d = PROCS_D // world
+    ys = [x["halo"] * (k + 1) + k for k in range(rounds)]
+    heads = [x["head"] - k for k in range(rounds)]
+    mine = [y[:, rank * d:(rank + 1) * d].contiguous() for y in ys]
+    comm.left_halo(mine[0], 256, head0=heads[0])   # maps the buffers
+    torch.cuda.synchronize()
+    slots = comm._slots()
+    held = slots.round
+    late = [(1 + k % (world - 1), "pull") if k < rounds // 2
+            else (k % (world - 1), "push") for k in range(rounds)]
+    k = 0
+
+    def held_back(dsts, srcs, push, pull):
+        who, where = late[k]
+
+        def push_():
+            if (rank, "push") == (who, where):
+                torch.cuda._sleep(PROCS_DELAY_CYCLES)
+            push()
+
+        def pull_():
+            if (rank, "pull") == (who, where):
+                torch.cuda._sleep(PROCS_DELAY_CYCLES)
+            pull()
+        held(dsts, srcs, push_, pull_)
+    slots.round = held_back
+    got = []
+    t0 = time.perf_counter()
+    try:
+        for k in range(rounds):
+            got.append(comm.left_halo(mine[k], 256, head0=heads[k]))
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        ran_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        slots.round = held
+    for k in range(rounds):
+        want = plain.left_halo(ys[k], 256, head0=heads[k])
+        if not torch.equal(torch.view_as_real(got[k]), torch.view_as_real(
+                want[:, rank * d:(rank + 1) * d])):
+            raise AssertionError(f"rank {rank}/{world}: round {k}, rank "
+                                 f"{late[k][0]} late at its "
+                                 f"{late[k][1]}, differs from the plain "
+                                 f"version")
+    return {"rounds": rounds, "queued_ms": queued_ms, "ran_ms": ran_ms}
+
+
+def _proc_halo_time(rank: int, world: int, dev, iters: int = 200) -> dict:
+    """The halo kernel across processes at SHARDED's passband exchange
+    (8 receivers × d_local shards of 131072 complex samples, 256 of
+    history, the carry as global shard 0's head): µs a call as the host
+    sees it (every rank, synchronised at the end) and as the card sees it
+    (CUDA events around the same calls: the round's waits on the peers
+    included); the host handshake alone (a bare barrier of the gloo
+    group); and, on rank 0 while the others wait, the push launch alone
+    with its peer destinations, the launches queued (`cuda_ms_queued`)."""
+    import torch.distributed as dist
+    from supersdr_tpu_torch.ops.cuda import halo
+    from supersdr_tpu_torch.parallel import mesh
+    comm = mesh.time_mesh(PROCS_D, device=dev).comm
+    n = SHARDED["n_taps"] - 1
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn(SHARDED_RX, PROCS_D // world, SHARDED["chunk"],
+                    generator=g, device=dev, dtype=torch.complex64)
+    head = torch.randn(SHARDED_RX, n, generator=g, device=dev,
+                       dtype=torch.complex64)
+    out = torch.empty(SHARDED_RX, PROCS_D // world, n, dtype=torch.complex64,
+                      device=dev)
+    for _ in range(5):
+        comm._halo(x, n, 0.0, 1, head, out)
+    torch.cuda.synchronize()
+    dist.barrier()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        comm._halo(x, n, 0.0, 1, head, out)
+    end.record()
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) / iters * 1e6
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        dist.barrier()
+    barrier_us = (time.perf_counter() - t0) / iters * 1e6
+    slots = comm._slots()
+
+    def push():
+        box = slots.outbox(1)[:out.numel() * 8].view(torch.complex64)
+        peer = torch.as_strided(box, out.shape, out.stride())
+        halo.left_halo(x, n, head0=head, out=out, peers=[(peer, 0)])
+    kernel_us = _alone(rank, lambda: cuda_ms_queued(push, iters, dev) * 1e3)
+    return {"host_us": host_us,
+            "card_us": start.elapsed_time(end) / iters * 1e3,
+            "barrier_us": barrier_us, "kernel_us": kernel_us}
+
+
+def _timed_calls(step, iters: int) -> float:
+    """ms a call of step() from the host, the card synchronised at the
+    end, after a warm-up call; every rank together."""
+    import torch.distributed as dist
+    step()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    dist.barrier()
+    return ms
+
+
+def _alone(rank: int, fn):
+    """fn() on rank 0 while the other ranks wait (one process's time on
+    the card, nothing else on it); None elsewhere."""
+    import torch.distributed as dist
+    got = fn() if rank == 0 else None
+    dist.barrier()
+    return got
+
+
+def _proc_sharded(rank: int, world: int, dev, iters: int = 5) -> dict:
+    """SHARDED (8 receivers × 8 time shards × 131072 samples, AM, matmul
+    passband) over the processes: two chained calls from zeroed launch
+    counts, this rank's audio against the same calls of the one-process
+    mesh on the card (bit for bit, or ≥ TOL_SNR_DB["cpu"]); then ms a call
+    over the processes and of one process alone."""
+    from supersdr_tpu_torch.parallel import ingest, mesh, sharded_chain
+    from supersdr_tpu_torch.runtime import chain
+    cfg = chain.ChainConfig(**SHARDED)
+    n = cfg.chunk * SHARDED_D
+    offs = np.linspace(-300.0, 300.0, SHARDED_RX)
+    agc_on = dict(on=True, thresh_db=-80, decay_ms=1000)
+    iq = _sharded_iq(SHARDED_RX, 2 * n, cfg.iq_rate, 9)
+    calls = [iq[:, :n], iq[:, n:]]
+    runs = {}
+    for key, world_ in (("procs", None), ("one", 1)):
+        m = mesh.time_mesh(SHARDED_D, device=dev, world=world_)
+        proc = sharded_chain.build(cfg, m)
+        p = sharded_chain.make_params(cfg, SHARDED_RX, offs,
+                                      agc_kwargs=agc_on, device=dev)
+        st = sharded_chain.init_state(cfg, SHARDED_RX, device=dev)
+        lo, hi = ingest.local_time_range(n, m)
+        if key == "procs":
+            _reset_counts()
+        outs = []
+        for c in calls:
+            blk = ingest.make_global_iq(c[:, lo:hi], c.shape, m)
+            st, out = proc(p, st, blk.flatten(-2))
+            outs.append(out.audio)
+        torch.cuda.synchronize()
+        if key == "procs":
+            launches = _counts()
+        runs[key] = (proc, p, st, torch.cat(outs, dim=-1), m, lo, hi)
+    audio, one = runs["procs"][3], runs["one"][3]
+    w = one.shape[-1] // 2 // world          # this rank's part of a call
+    mine = torch.cat([one[:, k * w * world + rank * w:][:, :w]
+                      for k in range(2)], dim=-1)
+    same = torch.equal(audio, mine)
+    snr = _snr_db(mine, audio)
+    if launches["halo"] != 3 * len(calls) or not (same or snr >= TOL_SNR_DB[
+            "cpu"]) or not bool(torch.isfinite(audio).all()):
+        raise AssertionError(f"rank {rank}/{world}: SHARDED over processes "
+                             f"launches {launches}, identical {same}, snr "
+                             f"{snr:.2f} dB")
+    x = {}
+    for key in ("procs", "one"):
+        proc, p, st, _, m, lo, hi = runs[key]
+        x[key] = torch.as_tensor(calls[0][:, lo:hi], device=dev)
+    hold = {k: runs[k][2] for k in runs}
+
+    def step(key):
+        proc, p = runs[key][0], runs[key][1]
+        hold[key], out = proc(p, hold[key], x[key])
+        return out.audio.abs().mean()
+    ms = _timed_calls(lambda: step("procs"), iters)
+    one_ms = _alone(rank, lambda: cuda_ms(lambda: step("one"), iters))
+    return {"launches": launches, "same": same, "snr": snr, "ms": ms,
+            "one_ms": one_ms}
+
+
+def _proc_mesh(rank: int, world: int, dev, iters: int = 3,
+               seed: int = 12) -> dict:
+    """HEADLINE fast through `sharded_wideband` on MESH_D shards over the
+    processes: two chained process_n calls of two chunks (float32, then
+    int16) from zeroed launch counts, the audio gathered from the ranks'
+    rows against the one-process MESH_D-shard mesh on the card (bit for
+    bit, or ≥ TOL_TIER_DB["fast"]), column for column (both keep
+    `channel_order`); then ms a chunk over the processes and of one
+    process alone."""
+    from supersdr_tpu_torch.parallel import collectives
+    from supersdr_tpu_torch.parallel import sharded_wideband as sw
+    from supersdr_tpu_torch.runtime import wideband as wb
+    cfg = wb.WidebandConfig(**HEADLINE, **wb.PROFILES["fast"])
+    params = wb.make_params(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f32, i16 = _headline_inputs(cfg, gen, dev)
+    procs = {"procs": sw.build(cfg, sw.make_mesh(MESH_D, dev)),
+             "one": sw.build(cfg, sw.make_mesh(MESH_D, dev, world=1))}
+    got = {}
+    for key, proc in procs.items():
+        st = proc.local_state(wb.init_state(cfg, device=dev))
+        if key == "procs":
+            _reset_counts()
+        outs = []
+        for chunks in (f32, i16):
+            st, audio, rssi = proc.process_n(params, st, chunks)
+            outs += [proc.gather_rows(a, 1) for a in audio]
+            outs.append(proc.gather_rows(rssi, 0))
+        torch.cuda.synchronize()
+        if key == "procs":
+            launches = _counts()
+            full = proc.gather_state(st)
+        got[key] = (outs, st if key == "one" else full)
+    same = all(torch.equal(a, b) for a, b in zip(got["procs"][0],
+                                                  got["one"][0]))
+    snr = min(_snr_db(b, a) for a, b in zip(got["procs"][0][:2],
+                                             got["one"][0][:2]))
+    state_same = all(torch.equal(a, b) for a, b in zip(
+        collectives._leaves(got["procs"][1]),
+        collectives._leaves(got["one"][1])))
+    want = {**{k: 0 for k in _wrappers()}, "channelize_fused": 4,
+            "chain_tail": 4, "halo": 4}
+    if launches != want or not (same or snr >= TOL_TIER_DB["fast"]) \
+            or not state_same:
+        raise AssertionError(f"rank {rank}/{world}: MESH over processes "
+                             f"launches {launches}, identical {same}, snr "
+                             f"{snr:.2f} dB, state identical {state_same}")
+    del got
+    hold = {k: procs[k].local_state(wb.init_state(cfg, device=dev))
+            for k in procs}
+
+    def step(key):
+        hold[key], outs, _ = procs[key].process_n(params, hold[key], f32)
+        return outs[-1].abs().mean()
+    ms = _timed_calls(lambda: step("procs"), iters) / len(f32)
+    one_ms = _alone(rank, lambda: cuda_ms(lambda: step("one"), iters)
+                    / len(f32))
+    return {"launches": launches, "same": same, "snr": snr, "ms": ms,
+            "one_ms": one_ms}
+
+
+_PROC_TASKS = {"prims": _proc_prims, "delay": _proc_delay,
+               "halo_time": _proc_halo_time, "sharded": _proc_sharded,
+               "mesh": _proc_mesh}
+
+
+def _procs_worker(rank: int, world: int, tasks: tuple) -> dict:
+    """One rank of phase_procs: the built library loaded (not rebuilt),
+    the tasks run in order on the card."""
+    from supersdr_tpu_torch import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    out = {"jax": "jax" in sys.modules}
+    for name in tasks:
+        t0 = time.perf_counter()
+        out[name] = _PROC_TASKS[name](rank, world, dev)
+        out[name]["s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_procs(device, tmp: str, timeout: float = 400.0) -> dict:
+    """The port's mesh across processes on the one card: PROCS_WORLDS
+    ranks spawned (`parallel.launch.spawn`: a gloo group over a file store;
+    each rank loads the built library). In each: every primitive of
+    `collectives.ProcessTransport` against the one-process transport, bit
+    for bit, with the halo kernel pushing into peer buffers over CUDA IPC;
+    the ordering under a delayed rank; the halo's µs a call across
+    processes; SHARDED over the processes against one process. Over 2
+    ranks also HEADLINE fast through `sharded_wideband` on MESH_D shards
+    against the one-process mesh. Any failure in a rank fails here."""
+    from supersdr_tpu_torch.parallel import launch
+    torch.cuda.empty_cache()
+    launches = {"sharded_procs": {k: 0 for k in _wrappers()},
+                "mesh_procs": {k: 0 for k in _wrappers()}}
+    times = {}
+    for world in PROCS_WORLDS:
+        tasks = ("prims", "delay", "halo_time", "sharded")
+        if world == 2:
+            tasks += ("mesh",)
+        t0 = time.perf_counter()
+        res = launch.spawn(_procs_worker, world,
+                           os.path.join(tmp, f"procs{world}.store"), tasks,
+                           timeout=timeout)
+        wall = time.perf_counter() - t0
+        if any(r["jax"] for r in res):
+            raise AssertionError("a rank imported JAX")
+        print(f"procs {world} ranks on one card: {wall:.1f} s, task s by "
+              f"rank {[{t: round(r[t]['s'], 1) for t in tasks} for r in res]}"
+              f"; primitives bit-identical to one process "
+              f"({res[0]['prims']['cases']} cases a rank), halo launches "
+              f"by rank {[r['prims']['launches'] for r in res]} (all but "
+              f"the last rank pushing to a peer); ordering held over "
+              f"{res[0]['delay']['rounds']} queued rounds, a rank late at its "
+              f"read or its push in each (queued in "
+              f"{[round(r['delay']['queued_ms'], 1) for r in res]} ms, run "
+              f"by {[round(r['delay']['ran_ms'], 1) for r in res]} ms, by "
+              f"rank)", flush=True)
+        ht = [r["halo_time"] for r in res]
+        print(f"time halo across {world} processes [{SHARDED_RX}, "
+              f"{PROCS_D // world} of {PROCS_D}, 256] complex64: a call from "
+              f"the host {[round(h['host_us'], 1) for h in ht]} us, on the "
+              f"card (its waits on the peers included) "
+              f"{[round(h['card_us'], 1) for h in ht]} us, by rank",
+              flush=True)
+        print(f"time halo across {world} processes: the host handshake "
+              f"alone (a gloo barrier) {[round(h['barrier_us'], 1) for h in ht]}"
+              f" us by rank; rank 0's push launch alone with its peer "
+              f"destination, queued on the card, {ht[0]['kernel_us']:.2f} us",
+              flush=True)
+        times[f"halo_procs{world}"] = (max(h["host_us"] for h in ht),
+                                       max(h["card_us"] for h in ht),
+                                       max(h["barrier_us"] for h in ht),
+                                       ht[0]["kernel_us"])
+        sh = [r["sharded"] for r in res]
+        print(f"procs SHARDED over {world} ranks: launches by rank "
+              f"{[s['launches']['halo'] for s in sh]} halo, identical to one "
+              f"process {[s['same'] for s in sh]}, snr "
+              f"{[round(s['snr'], 2) for s in sh]} dB; "
+              f"{max(s['ms'] for s in sh):.3f} ms/call over {world} "
+              f"processes against {sh[0]['one_ms']:.3f} ms/call in one",
+              flush=True)
+        times[f"sharded_procs{world}"] = (max(s["ms"] for s in sh),
+                                          sh[0]["one_ms"])
+        for s in sh:
+            for k, v in s["launches"].items():
+                launches["sharded_procs"][k] += v
+        if world == 2:
+            me = [r["mesh"] for r in res]
+            print(f"procs MESH fast {MESH_D} shards over {world} ranks: "
+                  f"launches by rank {[m['launches'] for m in me]}, audio "
+                  f"and RSSI identical to one process "
+                  f"{[m['same'] for m in me]}, snr "
+                  f"{[round(m['snr'], 2) for m in me]} dB; "
+                  f"{max(m['ms'] for m in me):.3f} ms/chunk over {world} "
+                  f"processes against {me[0]['one_ms']:.3f} ms/chunk in one",
+                  flush=True)
+            times["mesh_procs2"] = (max(m["ms"] for m in me),
+                                    me[0]["one_ms"])
+            for m in me:
+                for k, v in m["launches"].items():
+                    launches["mesh_procs"][k] += v
+    return {"paths": {k: {"launches": v} for k, v in launches.items()},
+            "times": times}
+
 # the CLI and live-session phases. WIDE: a 30.72 MHz capture into 2560
 # channels, 11904 frames (0.992 s), which both profiles' chan_tile_t
 # divide, so `cli wideband --profile` takes the planar tier; the MID capture
@@ -2716,6 +3210,9 @@ def main() -> int:
     phase_chain(dev)
     times.update(phase_halo_timing(dev))
     sharded = phase_sharded(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = phase_procs(dev, tmp)
+    times.update(procs["times"])
     tmajor = phase_tmajor(dev, err, planar_ms)
     torch.cuda.empty_cache()
     mesh = phase_mesh(dev, err)
@@ -2737,7 +3234,7 @@ def main() -> int:
              **cli_runs, "session": session, "monitor": monitor["monitor"],
              "monitor_i16": monitor["monitor_i16"],
              "monitor_mesh": monitor["monitor_mesh"], "live": live,
-             "checkpoint": checkpoint, "trace": traced}
+             "checkpoint": checkpoint, "trace": traced, **procs["paths"]}
     bounds = kernel_bounds(times["halo_bound"])
     kernels = [
         _summary("channelize_fused", "channelize_fused.cu",
@@ -2760,8 +3257,15 @@ def main() -> int:
         _summary("halo", "halo.cu", "halo.py:24", paths, err, times["halo"],
                  bounds["halo"], library_ms=times["halo_library"],
                  empty_launch_ms=times["halo_empty"],
-                 call_ms=times["halo_call"]),
+                 call_ms=times["halo_call"],
+                 **{f"{k}_us": dict(zip(("host", "card", "barrier",
+                                         "kernel"), v))
+                    for k, v in times.items() if k.startswith("halo_procs")}),
     ]
+    print(f"procs (ms a SHARDED call / MESH chunk over the ranks against "
+          f"one process; halo us a call from the host, on the card, the "
+          f"bare handshake, the push launch alone): "
+          f"{json.dumps(procs['times'])}", flush=True)
     for k in kernels:
         print(f"bound {k['name']}: {k['ms']:.4f} ms against "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}), launches "

@@ -9,10 +9,11 @@ each module's counterpart is easy to find. It imports `torch` and never
 It runs the receiver chain (`runtime.chain.process` / `run_offline`, every
 mode, passband, resampler and control), the wideband pipeline's planar,
 time-major, chan-major and fallback tiers (`runtime.wideband.process` /
-`process_n` / `process_many` / `process_i16`) and the receiver chain
-sharded over a ('chan', 'time') mesh held on one device
-(`parallel.sharded_chain.build`, with the mesh forms of the scans, the
-demodulators and the AGC) on five hand-written kernels; and the user's
+`process_n` / `process_many` / `process_i16`) and the mesh forms
+(`parallel/`: the receiver chain sharded over a ('chan', 'time') mesh,
+with the mesh forms of the scans, the demodulators and the AGC; the
+sharded wideband pipeline; each in one process or with its time shards
+split over processes on one card) on five hand-written kernels; and the user's
 entry points on them: the CLI (`python -m supersdr_tpu_torch.cli demod |
 waterfall | wideband | kiwi`), the live KiwiSDR session, the receiver
 controller, dual RX, the spectrum/waterfall ops and the ADPCM codec. What

@@ -52,6 +52,12 @@ SIGNATURES = {
     "halo_empty_launch": [_P],
     "halo_push": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
                   _L, _L, _F, _F, _P],
+    "peer_alloc": [_I, _L, _P],
+    "peer_free": [_I, _P],
+    "peer_handle_bytes": [],
+    "peer_ipc_handle": [_I, _P, _P],
+    "peer_ipc_open": [_I, _P, _P],
+    "peer_ipc_close": [_I, _P],
 }
 
 

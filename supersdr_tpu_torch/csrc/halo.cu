@@ -17,19 +17,27 @@
 //
 // Sources and destinations are tables of per-shard base pointers, passed by
 // value in the kernel's parameters (D ≤ 64), never one base plus a stride.
-// On one card all D pointers point into one allocation. Across cards they
-// are to be peer-mapped buffers, one a card, and the kernel stays as it is;
-// that transport is not built yet and nothing here claims it works.
+// In one process all D pointers point into one allocation. Across processes
+// (parallel/collectives.ProcessTransport on CUDA tensors) the wrapper lengthens
+// the table: virtual shards past this process's last one are the receive
+// buffers of the processes to its right, mapped into this process with CUDA
+// IPC (ops/cuda/peer.py), so one launch writes this process's own halos and
+// pushes its tails to its neighbours. The body is the same either way. That
+// transport runs with every process on one card; across cards the same
+// tables would hold peer pointers over NVLink, which is not built or measured.
 //
 // Ordering: the TPU kernel signals a barrier to both neighbours before it
 // pushes, so that a push never lands in a receive buffer that is not ready.
-// Here every source and destination lives on one card and the launch is
-// ordered on the caller's stream after whatever produced the sources and
-// before whatever reads the destinations: stream order is the barrier.
-// Across cards a flag in peer memory (written after a __threadfence_system,
-// polled by the receiver) or stream events shared between the processes
-// will have to stand in its place.
-//
+// In one process every source and destination lives on one card and the
+// launch is ordered on the caller's stream after whatever produced the
+// sources and before whatever reads the destinations: stream order is the
+// barrier. Across processes CUDA IPC events and a host handshake stand in
+// its place (ops/cuda/peer.py): before the push the stream waits on the
+// receiver's event "done reading this buffer", the push records "pushed",
+// the processes meet on the host, and each receiver's stream waits on its
+// senders' "pushed" before it reads. The receive buffers alternate by call
+// parity, so call k+1's push never lands on what call k has not yet read.
+
 // What bounds it on this card: the launch. At the sharded chain's shape
 // (8 rows × 8 shards × 256 samples × 2 planes of f32) it moves 0.26 MB in
 // and out, ~0.1 µs at 3.35 TB/s, far under the few µs an empty launch takes.
@@ -137,6 +145,50 @@ int halo_push(const void* const* src_tab, void* const* dst_tab,
   return (int)launch<float>(tab, n_planes, D, R, m, hop, src_rs, src_es,
                             src_off, dst_rs, dst_es, head_rs, head_es, fill0,
                             fill1, st);
+}
+
+// The receive buffers of the transport across processes (ops/cuda/peer.py):
+// device memory of this library's own, so that an IPC handle names exactly
+// the buffer (a pointer into the caching allocator's pool would name the
+// whole pool block, at an offset the opener would have to add), and so that
+// PyTorch's allocator settings (expandable segments) do not apply to it.
+int peer_alloc(int device, long bytes, void** ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaMalloc(ptr, (size_t)bytes);
+  if (err == cudaSuccess) err = cudaMemset(*ptr, 0, (size_t)bytes);
+  return (int)err;
+}
+
+int peer_free(int device, void* ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaFree(ptr);
+  return (int)err;
+}
+
+// Bytes of an IPC memory handle (the caller's buffer for peer_ipc_handle).
+int peer_handle_bytes() { return (int)sizeof(cudaIpcMemHandle_t); }
+
+int peer_ipc_handle(int device, void* ptr, void* handle) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), ptr);
+  return (int)err;
+}
+
+// Opens another process's buffer (a process cannot open its own handle).
+int peer_ipc_open(int device, const void* handle, void** ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaIpcOpenMemHandle(
+        ptr, *static_cast<const cudaIpcMemHandle_t*>(handle),
+        cudaIpcMemLazyEnablePeerAccess);
+  return (int)err;
+}
+
+int peer_ipc_close(int device, void* ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaIpcCloseMemHandle(ptr);
+  return (int)err;
 }
 
 }  // extern "C"

@@ -11,8 +11,14 @@ selects in for shard 0).
 The kernel is `csrc/halo.cu`; `left_halo_plain` is the same function in
 plain PyTorch (a slice copy). `left_halo` runs the plain version for CPU
 tensors and the kernel for CUDA tensors. The kernel takes its sources and
-destinations as tables of per-shard base pointers; on one card they all
-point into the one tensor.
+destinations as tables of per-shard base pointers. In one process they all
+point into the one tensor. Across processes on one card
+(`parallel/collectives.ProcessTransport`) `peers` adds destinations past
+the last shard: the receive buffers of the processes to the right, mapped
+into this process with CUDA IPC (`ops/cuda/peer.py`), so the same launch
+pushes this process's tails to them; the transport orders the push and
+the read with IPC events. Across cards the same tables would hold peer
+pointers over NVLink; that is not built or measured.
 """
 
 from __future__ import annotations
@@ -43,31 +49,40 @@ def _fills(fill: float, n_planes: int, dtype: torch.dtype) -> list:
     return [fill] + [0.0] * (n_planes - 1)
 
 
-def _copy_plain(xs, heads, outs, n: int, hop: int, fills) -> None:
-    """The exchange as slice copies, plane by plane."""
+def _copy_plain(xs, heads, outs, n: int, hop: int, fills, peers) -> None:
+    """The exchange as slice copies, plane by plane; `peers` [(planes, s)]
+    are the destinations of virtual shards D, D + 1, …"""
     D = xs[0].shape[-2]
-    for xp, hp, op, f in zip(xs, heads, outs, fills):
+    for p, (xp, hp, op, f) in enumerate(zip(xs, heads, outs, fills)):
         if hp is not None:
             op[..., 0, :] = hp
         else:
             op[..., :min(hop, D), :] = f
         if hop < D:
             op[..., hop:, :] = xp[..., :D - hop, xp.shape[-1] - n:]
+        for i, (dest, s) in enumerate(peers):
+            if D + i >= hop:
+                dest[p][..., s, :] = xp[..., D + i - hop, xp.shape[-1] - n:]
+            else:
+                dest[p][..., s, :] = f
 
 
-def _exchange(x, n, fill, hop, head0, out, use_kernel):
+def _exchange(x, n, fill, hop, head0, out, peers, use_kernel):
     single = isinstance(x, torch.Tensor)
     xt = [x] if single else list(x)
     ot, ht = _check(xt, n, hop, head0, out, single)
+    pt = _check_peers(peers, ot, hop, single)
     dev = xt[0].device
     if dev.type == "cuda" and use_kernel:
-        _launch(xt, ht, ot, n, hop, fill)
+        _launch(xt, ht, ot, n, hop, fill, pt)
     elif dev.type in ("cpu", "cuda"):
         xs = [p for t in xt for p in _planes(t)]
         heads = [None] * len(xs) if ht is None \
             else [p for t in ht for p in _planes(t)]
         _copy_plain(xs, heads, [p for t in ot for p in _planes(t)], n, hop,
-                    _fills(fill, len(xs), xt[0].dtype))
+                    _fills(fill, len(xs), xt[0].dtype),
+                    [([p for t in d for p in _planes(t)], s)
+                     for d, s in pt])
     else:
         raise ValueError(f"unsupported device {dev}")
     if out is not None:
@@ -76,10 +91,30 @@ def _exchange(x, n, fill, hop, head0, out, use_kernel):
 
 
 def left_halo_plain(x, n: int, fill: float = 0.0, *, hop: int = 1,
-                    head0=None, out=None):
+                    head0=None, out=None, peers=()):
     """Plain PyTorch halo exchange (see `left_halo`): slice copies on
     whatever device x is on."""
-    return _exchange(x, n, fill, hop, head0, out, use_kernel=False)
+    return _exchange(x, n, fill, hop, head0, out, peers, use_kernel=False)
+
+
+def _check_peers(peers, ot, hop, single):
+    """`peers` as [(list of destination tensors, shard)]: each destination
+    like the output (shape, dtype, device, strides), and every virtual
+    shard D + i within `hop` of the last real one."""
+    D = ot[0].shape[-2]
+    pt = []
+    for i, (dest, s) in enumerate(peers):
+        dt = [dest] if single else list(dest)
+        if len(dt) != len(ot) or not 0 <= s < D or i >= hop:
+            raise ValueError("a peer destination must match out and stand "
+                             "for a shard within hop of the last one")
+        for d, o in zip(dt, ot):
+            if d.shape != o.shape or d.dtype != o.dtype \
+                    or d.device != o.device or d.stride() != o.stride():
+                raise ValueError("a peer destination must have out's shape,"
+                                 " dtype, device and strides")
+        pt.append((dt, s))
+    return pt
 
 
 def _check(xt, n, hop, head0, out, single):
@@ -169,13 +204,14 @@ def _descs(tensors, keep: int):
     return ptrs, rows, (row_stride,) + tuple(strides[nb:])
 
 
-def _launch(xt, ht, ot, n, hop, fill):
+def _launch(xt, ht, ot, n, hop, fill, pt):
     lib = _build.load()
     x0 = xt[0]
     D, n_local = x0.shape[-2], x0.shape[-1]
-    if D > lib.halo_max_shards():
+    V = D + len(pt)                 # the table's shards, peers included
+    if V > lib.halo_max_shards():
         raise ValueError(f"the kernel's pointer table holds at most "
-                         f"{lib.halo_max_shards()} shards, got {D}")
+                         f"{lib.halo_max_shards()} shards, got {V}")
     if x0.numel() == 0:
         return
     xp, R, (x_rs, x_ds, x_es) = _descs(xt, 2)
@@ -185,15 +221,21 @@ def _launch(xt, ht, ot, n, hop, fill):
     fills = _fills(fill, len(xp), x0.dtype)
     esz = 2 if x0.dtype == torch.int16 else 4
     n_planes = len(xp)
-    Tab = ctypes.c_void_p * (n_planes * D)
-    src = Tab(*[b + s * x_ds * esz for b in xp for s in range(D)])
-    dst = Tab(*[b + s * o_ds * esz for b in op for s in range(D)])
+    peer_ptrs = [(_descs(d, 2)[0], s) for d, s in pt]
+    Tab = ctypes.c_void_p * (n_planes * V)
+    # plane-major: plane p's V entries at [p·V, (p + 1)·V); the sources of
+    # virtual shards are never read (the kernel reads src[s − hop] < D)
+    src = Tab(*[b + s * x_ds * esz if s < D else 0 for b in xp
+                for s in range(V)])
+    dst = Tab(*[e for p, b in enumerate(op)
+                for e in [b + s * o_ds * esz for s in range(D)]
+                + [pp[p] + s * o_ds * esz for pp, s in peer_ptrs]])
     head, h_rs, h_es = None, 0, 0
     if ht is not None:
         hp, _, (h_rs, h_es) = _descs(ht, 1)
         head = (ctypes.c_void_p * n_planes)(*hp)
     err = lib.halo_push(
-        src, dst, head, n_planes, D, int(esz == 2), R, n, hop, x_rs, x_es,
+        src, dst, head, n_planes, V, int(esz == 2), R, n, hop, x_rs, x_es,
         n_local - n, o_rs, o_es, h_rs, h_es, float(fills[0]),
         float(fills[-1]),
         ctypes.c_void_p(torch.cuda.current_stream(x0.device).cuda_stream))
@@ -202,7 +244,7 @@ def _launch(xt, ht, ot, n, hop, fill):
 
 
 def left_halo(x, n: int, fill: float = 0.0, *, hop: int = 1, head0=None,
-              out=None):
+              out=None, peers=()):
     """The last `n` samples of the shard `hop` places to the left.
 
     x: float32, int16 or complex64 `[*batch, D, n_local]` with any element
@@ -213,9 +255,14 @@ def left_halo(x, n: int, fill: float = 0.0, *, hop: int = 1, head0=None,
     is fill + 0j) or, with `head0` `[*batch, n]` (one hop only; a complex
     tensor or an (re, im) pair for complex x), shard 0 holds head0. `out`
     is written in place when given (any strides, e.g. a slice of a longer
-    context). CPU tensors run the plain version, CUDA tensors the
+    context). `peers`: destinations of virtual shards D, D + 1, … (a pair
+    of planes for a pair), each `(dest, s)` with `dest` like the output
+    (shape, dtype and strides: another process's receive buffer seen
+    through CUDA IPC) and shard s of it receiving what virtual shard D + i
+    would: the tail of shard D + i − hop, or `fill` where that is before
+    the first shard. CPU tensors run the plain version, CUDA tensors the
     kernel."""
-    return _exchange(x, n, fill, hop, head0, out, use_kernel=True)
+    return _exchange(x, n, fill, hop, head0, out, peers, use_kernel=True)
 
 
 left_halo.launches = 0

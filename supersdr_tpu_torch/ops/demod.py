@@ -13,8 +13,9 @@ Every demod is (state, y) → (state, audio). The fused chain tail
 (`ops/cuda/chain_tail.py`) runs the AM/SSB/NBFM forms inside its kernel.
 With `shard_axis=-2` (the reference's `axis_name`) y is `[*batch, D,
 n_local]`, time-sharded: NBFM's previous sample and AM's DC block cross
-the shard boundaries, the state seeds shard 0, and the returned state
-holds every shard's (`[*batch, D]`; the stream's is the last one).
+the shard boundaries (through `comm`, the mesh's transport), the state
+seeds shard 0, and the returned state holds every shard's (`[*batch, D]`;
+the stream's is the last one).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from supersdr_tpu_torch.ops import cx, scans
+from supersdr_tpu_torch.parallel import collectives
 
 # below this |Re p|+|Im p| of p = y[n]·conj(y[n−1]) the angle is
 # numerical noise, so the discriminator outputs 0 (as the reference)
@@ -52,23 +54,23 @@ def demod_ssb(state: DemodState, y: torch.Tensor
 
 
 def demod_am(state: DemodState, y: torch.Tensor, dc_r: float = 0.999,
-             shard_axis: int | None = None, halo_impl: str = "rdma"
+             shard_axis: int | None = None, comm=None
              ) -> tuple[DemodState, torch.Tensor]:
     audio, (dc_x, dc_y) = scans.dc_block(y.abs().float(), dc_r, state.dc_x,
                                          state.dc_y, shard_axis=shard_axis,
-                                         halo_impl=halo_impl)
+                                         comm=comm)
     return state._replace(dc_x=dc_x, dc_y=dc_y), audio
 
 
 def demod_nbfm(state: DemodState, y: torch.Tensor, fs: float,
                max_dev_hz: float = 5000.0, shard_axis: int | None = None,
-               halo_impl: str = "rdma"
+               comm=None
                ) -> tuple[DemodState, torch.Tensor]:
     if shard_axis is not None:
         # each shard's previous sample: the left neighbour's last one
         last = cx.CX(*(torch.broadcast_to(p, y.shape[:-2])[..., None]
                        .contiguous() for p in state.last_sample))
-        first = scans.left_halo(y, 1, head0=last, impl=halo_impl)
+        first = (comm or collectives.LOCAL).left_halo(y, 1, head0=last)
     else:
         last = torch.complex(state.last_sample.re, state.last_sample.im)
         first = torch.broadcast_to(last, y[..., 0].shape)[..., None]
@@ -112,17 +114,16 @@ def demodulate_runtime(state: DemodState, y: torch.Tensor, fs: float,
 
 def demodulate(mode: str, state: DemodState, y: torch.Tensor, fs: float,
                max_dev_hz: float = 5000.0, shard_axis: int | None = None,
-               halo_impl: str = "rdma") -> tuple[DemodState, torch.Tensor]:
+               comm=None) -> tuple[DemodState, torch.Tensor]:
     """Dispatch by mode name."""
     mode = mode.upper()
     if mode in ("USB", "LSB", "CW"):
         return demod_ssb(state, y)
     if mode == "AM":
-        return demod_am(state, y, shard_axis=shard_axis,
-                        halo_impl=halo_impl)
+        return demod_am(state, y, shard_axis=shard_axis, comm=comm)
     if mode == "NBFM":
         return demod_nbfm(state, y, fs, max_dev_hz=max_dev_hz,
-                          shard_axis=shard_axis, halo_impl=halo_impl)
+                          shard_axis=shard_axis, comm=comm)
     if mode == "IQ":
         return demod_iq(state, y)
     raise ValueError(f"unknown mode {mode!r}")

@@ -14,12 +14,14 @@ stands for the reference's `blocked_cummax`, a TPU memory-pass saving).
 Every scan also runs across a time-sharded axis, where the reference takes
 `axis_name` inside `shard_map`: with `shard_axis=-2` the input is `[*batch,
 D, n_local]`, each shard scans its block, the per-shard compositions (A, B)
-are gathered (`parallel/collectives.gather_summaries`, 2·D scalars a scan),
-and each shard folds the shards before it, in order, onto `y0`, which then
-seeds shard 0 only. The fold is sequential in the shard index as the
+are gathered (`comm.gather_summaries`, 2·D scalars a scan), and each shard
+folds the shards before it, in order, onto `y0`, which then seeds global
+shard 0 only. The fold is sequential in the global shard index as the
 reference's, so the sharded result re-associates nothing the reference
-does not. `halo_impl` picks how neighbouring samples travel
-(`collectives.left_halo`). `parallel/collectives` stands here where
+does not. `comm` is the mesh's transport (`parallel/collectives.py`; None:
+every shard in this process, halos by the halo kernel): it gathers the
+summaries, numbers the shards and moves the neighbouring samples, in this
+process or across processes. `parallel/collectives` stands here where
 `jax.lax`'s collectives stand in the reference's scans; it is the one
 module of `parallel/` that `ops` imports, and it imports nothing of
 `parallel/` itself (only the halo kernel's wrapper).
@@ -61,14 +63,16 @@ def _check_shard_axis(shard_axis, b: torch.Tensor) -> bool:
     return True
 
 
-def _fold_preceding_shards(A: torch.Tensor, B: torch.Tensor, y0, apply_op
-                           ) -> torch.Tensor:
-    """y at each shard's start, [*batch, D, 1]: the gathered summaries of
-    the shards j < s applied in order to y0 (A, B [*batch, D, n]: the
-    local scans, whose last column is each shard's composition)."""
-    sum_a = collectives.gather_summaries(A[..., -1:])     # [D, *batch, 1]
-    sum_b = collectives.gather_summaries(B[..., -1:])
-    my = collectives.shard_index(B)                       # [D, 1]
+def _fold_preceding_shards(A: torch.Tensor, B: torch.Tensor, y0, apply_op,
+                           comm) -> torch.Tensor:
+    """y at each shard's start, [*batch, D_local, 1]: the gathered
+    summaries of the global shards j < s applied in order to y0 (A, B
+    [*batch, D_local, n]: the local scans, whose last column is each
+    shard's composition)."""
+    comm = comm or collectives.LOCAL
+    sum_a = comm.gather_summaries(A[..., -1:])            # [D, *batch, 1]
+    sum_b = comm.gather_summaries(B[..., -1:])
+    my = comm.shard_index(B)                              # [D_local, 1]
     y_in = torch.broadcast_to(_align_y0(y0, B, sharded=True),
                               B[..., :1].shape)
     for j in range(sum_a.shape[0]):
@@ -85,10 +89,11 @@ def _shift(x: torch.Tensor, s: int, fill: float) -> torch.Tensor:
                       x[..., :x.shape[-1] - s]], dim=-1)
 
 
-def linear_scan(a, b: torch.Tensor, y0, shard_axis: int | None = None
-                ) -> torch.Tensor:
+def linear_scan(a, b: torch.Tensor, y0, shard_axis: int | None = None,
+                comm=None) -> torch.Tensor:
     """y[n] = a[n]·y[n−1] + b[n] with y[−1] = y0. With `shard_axis` the
-    recurrence runs across the time shards; y0 then seeds shard 0."""
+    recurrence runs across the time shards (of `comm`); y0 then seeds
+    shard 0."""
     sharded = _check_shard_axis(shard_axis, b)
     A = torch.broadcast_to(_as_tensor(a, b), b.shape)
     B = b
@@ -99,7 +104,7 @@ def linear_scan(a, b: torch.Tensor, y0, shard_axis: int | None = None
         s *= 2
     if sharded:
         y0 = _fold_preceding_shards(A, B, y0,
-                                    lambda y, sa, sb: sa * y + sb)
+                                    lambda y, sa, sb: sa * y + sb, comm)
     return A * _align_y0(y0, b) + B
 
 
@@ -127,8 +132,8 @@ def linear_scan_const(a, b: torch.Tensor, y0, block: int = 128
     return y.reshape(b.shape)
 
 
-def maxplus_scan(a, b: torch.Tensor, y0, shard_axis: int | None = None
-                 ) -> torch.Tensor:
+def maxplus_scan(a, b: torch.Tensor, y0, shard_axis: int | None = None,
+                 comm=None) -> torch.Tensor:
     """y[n] = max(y[n−1] + a[n], b[n]) with y[−1] = y0; `shard_axis` as
     in `linear_scan`."""
     sharded = _check_shard_axis(shard_axis, b)
@@ -141,7 +146,7 @@ def maxplus_scan(a, b: torch.Tensor, y0, shard_axis: int | None = None
         s *= 2
     if sharded:
         y0 = _fold_preceding_shards(
-            A, B, y0, lambda y, sa, sb: torch.maximum(y + sa, sb))
+            A, B, y0, lambda y, sa, sb: torch.maximum(y + sa, sb), comm)
     return torch.maximum(A + _align_y0(y0, b), B)
 
 
@@ -179,15 +184,16 @@ def saturating_add_scan(a: torch.Tensor, lo: int, hi: int, y0: int
     return torch.minimum(torch.maximum(A + y0, L), H)
 
 
-def one_pole(x: torch.Tensor, coeff, y0, shard_axis: int | None = None
-             ) -> torch.Tensor:
+def one_pole(x: torch.Tensor, coeff, y0, shard_axis: int | None = None,
+             comm=None) -> torch.Tensor:
     """One-pole smoother y[n] = coeff·y[n−1] + (1 − coeff)·x[n]."""
     coeff = _as_tensor(coeff, x)
-    return linear_scan(coeff, (1.0 - coeff) * x, y0, shard_axis=shard_axis)
+    return linear_scan(coeff, (1.0 - coeff) * x, y0, shard_axis=shard_axis,
+                       comm=comm)
 
 
 def dc_block(x: torch.Tensor, r, y0_x, y0_y, shard_axis: int | None = None,
-             halo_impl: str = "rdma"
+             comm=None
              ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """DC blocker y[n] = x[n] − x[n−1] + r·y[n−1]; returns (y, (last x,
     last y)) so the state threads across blocks. With `shard_axis`, x[n−1]
@@ -198,9 +204,10 @@ def dc_block(x: torch.Tensor, r, y0_x, y0_y, shard_axis: int | None = None,
     if _check_shard_axis(shard_axis, x):
         x_prev0 = torch.broadcast_to(_as_tensor(y0_x, x),
                                      x.shape[:-2]).contiguous()
-        first = left_halo(x, 1, head0=x_prev0[..., None], impl=halo_impl)
+        first = (comm or collectives.LOCAL).left_halo(
+            x, 1, head0=x_prev0[..., None])
         diff = x - torch.cat([first, x[..., :-1]], dim=-1)
-        y = linear_scan(r, diff, y0_y, shard_axis=shard_axis)
+        y = linear_scan(r, diff, y0_y, shard_axis=shard_axis, comm=comm)
         return y, (x[..., -1], y[..., -1])
     x_prev0 = torch.broadcast_to(_as_tensor(y0_x, x), x[..., 0].shape)
     diff = x - torch.cat([x_prev0[..., None], x[..., :-1]], dim=-1)
@@ -212,7 +219,7 @@ def dc_block(x: torch.Tensor, r, y0_x, y0_y, shard_axis: int | None = None,
 
 
 def sliding_max(x: torch.Tensor, window: int, shard_axis: int | None = None,
-                halo_impl: str = "rdma") -> torch.Tensor:
+                comm=None) -> torch.Tensor:
     """Causal sliding-window max over `window` samples (inclusive), as if
     x were left-padded with −inf: a log-depth cascade of shifted maxima,
     exact. With `shard_axis` the window reaches into the shards on the
@@ -220,7 +227,8 @@ def sliding_max(x: torch.Tensor, window: int, shard_axis: int | None = None,
     if window <= 1:
         return x
     if _check_shard_axis(shard_axis, x):
-        ctx = left_context(x, window - 1, fill=-torch.inf, impl=halo_impl)
+        ctx = (comm or collectives.LOCAL).left_context(x, window - 1,
+                                                       fill=-torch.inf)
         return sliding_max(torch.cat([ctx, x], dim=-1),
                            window)[..., window - 1:]
     y = x

@@ -4,8 +4,10 @@ time and then over channels (`sharded_wideband`), the distributed FFT
 (`dist_fft`), the 2-stage pipeline (`pipeline`), ingest, the traffic model
 and a dry run of them all. Counterpart of `supersdr_tpu/parallel/`.
 
-In this package a mesh lives on one device: every shard is a slice of a
-tensor axis there (as the reference's own tests run its mesh on virtual
-CPU devices). `collectives` is the one module that moves data between
-shards; a transport across devices belongs under it and nothing above it
-assumes one device."""
+A mesh's shards are slices of a tensor axis on one device: all of them in
+one process (as the reference's own tests run its mesh on virtual CPU
+devices), or, with a `torch.distributed` group, each process's share of
+the time shards (`launch` starts such processes). `collectives` is the one
+module that moves data between shards, in a process or across processes
+(gloo on the CPU, CUDA IPC between processes on one card); nothing above
+it assumes where the shards are."""

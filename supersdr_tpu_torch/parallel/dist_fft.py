@@ -8,8 +8,9 @@ Cooley-Tukey FFT whose N1 rows are sharded over a mesh axis,
   3. transpose N1 ↔ N2 through ONE `all_to_all`     (the only collective)
   4. each shard FFTs its local rows over N1        (no communication)
 
-The shards are a leading tensor axis on one device (as every mesh of the
-port's); the transpose goes through `collectives.all_to_all`. The local
+The shards are a leading tensor axis (as every mesh of the port's): all D
+in one process, or each process's D / world of them across a process group;
+the transpose goes through the mesh's transport (`collectives`). The local
 FFTs are `torch.fft` (the reference left them to XLA; no hand kernel).
 """
 
@@ -41,22 +42,27 @@ def _twiddle(n1: int, n2: int, d: int, sign: int, device: torch.device
         torch.complex64).reshape(d, n1 // d, n2)
 
 
-def fft_sharded(x: torch.Tensor, n1: int, n2: int, sign: int = -1
-                ) -> torch.Tensor:
+def fft_sharded(x: torch.Tensor, n1: int, n2: int, sign: int = -1,
+                comm=None) -> torch.Tensor:
     """Distributed FFT of x viewed as [n1, n2] row-major (x[j] =
     x_flat[j1·n2 + j2]), rows j1 sharded: x [d, n1/d, n2] complex64, shard
     s holding rows s·n1/d …. Returns each shard's part of the output viewed
     as [n2, n1] (X[k] = X_flat[k2·n1 + k1], k2 sharded): [d, n2/d, n1].
-    `unshuffle_index` maps it back to natural frequency order."""
-    d = x.shape[0]
+    `unshuffle_index` maps it back to natural frequency order. With `comm`
+    a process transport, x holds this process's d_local of the d shards
+    and the result its d_local."""
+    comm = comm or collectives.LOCAL
+    dl = x.shape[0]
+    d = dl * comm.world
     # step 1: local FFTs along n2
     y = torch.fft.fft(x, dim=-1) if sign < 0 else \
         torch.fft.ifft(x, dim=-1) * n2
     # step 2: twiddle W^{j1·k2} for the global row j1
-    y = y * _twiddle(n1, n2, d, sign, x.device)
+    y = y * _twiddle(n1, n2, d, sign, x.device)[comm.rank * dl:
+                                                (comm.rank + 1) * dl]
     # step 3: global transpose — every shard sends column block q of its
     # rows to shard q, which stacks the blocks in row order: [d, n1, n2/d]
-    y = collectives.all_to_all(y, 1, 0).transpose(-1, -2)
+    y = comm.all_to_all(y, 1, 0).transpose(-1, -2)
     # step 4: local FFTs along n1
     y = torch.fft.fft(y, dim=-1) if sign < 0 else \
         torch.fft.ifft(y, dim=-1) * n1
@@ -81,8 +87,11 @@ def unshuffle_index(n1: int, n2: int) -> np.ndarray:
 def build_fft(n: int, mesh: Mesh, sign: int = -1):
     """A distributed FFT of length n over `mesh`, natural-order output
     (the final unshuffle included). Returns f(x: CX [n]) -> CX [n] on
-    `mesh.device`; x may also be complex numpy."""
+    `mesh.device`; x may also be complex numpy. Over a process group every
+    process passes the whole x, transforms its shards and gets the whole
+    result (the shards' outputs gathered)."""
     d = mesh.n_shards
+    comm, dl = mesh.comm, mesh.d_local
     if n % (d * d):
         raise ValueError("n must be divisible by d^2 for the row/column "
                          "block exchange")
@@ -96,7 +105,9 @@ def build_fft(n: int, mesh: Mesh, sign: int = -1):
     def f(x) -> cx.CX:
         x = cx.as_cx(x, device=mesh.device)
         xs = torch.complex(x.re[pre], x.im[pre]).reshape(d, n1 // d, n2)
-        y = fft_sharded(xs, n1, n2, sign).reshape(-1)[post]
+        y = fft_sharded(xs[comm.rank * dl:(comm.rank + 1) * dl], n1, n2,
+                        sign, comm)
+        y = comm.gather(y, 0).reshape(-1)[post]
         return cx.CX(y.real.contiguous(), y.imag.contiguous())
 
     return f

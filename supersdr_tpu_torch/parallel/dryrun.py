@@ -1,19 +1,25 @@
 """A dry run of every mesh form at tiny shapes.
 
 Counterpart of `__graft_entry__.dryrun_multichip`: the same steps, shapes
-and assertions, on a mesh of `n_shards` shards that lives on one device.
+and assertions, on a mesh of `n_shards` shards on one device, in one
+process or split over `processes` processes (`parallel/launch.py`: a gloo
+group, each process holding n_shards / processes of the shards).
 
-  python3 -m supersdr_tpu_torch.parallel.dryrun [n_shards] [device]
+  python3 -m supersdr_tpu_torch.parallel.dryrun [n_shards] [device] \
+      [processes]
 """
 
 from __future__ import annotations
 
+import os
 import sys
+import tempfile
 
 import numpy as np
 
-from supersdr_tpu_torch.parallel import (dist_fft, mesh, pipeline,
-                                         sharded_chain, sharded_wideband)
+from supersdr_tpu_torch.parallel import (dist_fft, ingest, launch, mesh,
+                                         pipeline, sharded_chain,
+                                         sharded_wideband)
 from supersdr_tpu_torch.runtime import chain, wideband
 
 
@@ -23,11 +29,20 @@ def _noise(rng, shape, scale: float) -> np.ndarray:
 
 
 def _wideband(cfg, n_shards: int, device, rng, **kw):
-    """(process, params, state, one noise chunk) of the sharded wideband."""
+    """(process, params, this process's state, one noise chunk) of the
+    sharded wideband; the process's outputs are every process's rows,
+    gathered."""
     proc = sharded_wideband.build(
         cfg, sharded_wideband.make_mesh(n_shards, device), **kw)
-    return (proc, sharded_wideband.make_params(cfg, device=device),
-            sharded_wideband.init_state(cfg, device=device),
+    dim = 1 if cfg.time_major else 0
+
+    def whole(params, state, *chunks):
+        state, audio, rssi = proc.process_n(params, state, chunks)
+        audio = tuple(proc.gather_rows(a, dim) for a in audio)
+        return state, audio, proc.gather_rows(rssi, 0)
+    whole.planar, whole.planar_factors = proc.planar, proc.planar_factors
+    return (whole, sharded_wideband.make_params(cfg, device=device),
+            proc.local_state(sharded_wideband.init_state(cfg, device=device)),
             _noise(rng, cfg.chunk_in, 0.05))
 
 
@@ -52,15 +67,17 @@ def dryrun_multichip(n_shards: int, device=None) -> str:
     params = sharded_chain.make_params(cfg, n_chan, device=device)
     state = sharded_chain.init_state(cfg, n_chan, device=device)
     n = local * n_time
-    _, out = proc(params, state, _noise(rng, (n_chan, n), 0.1))
-    assert tuple(out.audio.shape) == (n_chan, n * 4)
+    iq = _noise(rng, (n_chan, n), 0.1)
+    lo, hi = ingest.local_time_range(n, m)
+    _, out = proc(params, state, iq[:, lo:hi])
+    assert tuple(out.audio.shape) == (n_chan, (hi - lo) * 4)
 
     # ---- 2. wideband: time-sharded PFB + all_to_all + channel-parallel
     wcfg = wideband.WidebandConfig(fs_in=96_000, n_chan=d,
                                    chunk_in=d * d * 128, mode="AM",
                                    taps_per=4, n_taps=129)
     wproc, wp, ws, wiq = _wideband(wcfg, d, device, rng)
-    _, audio, _ = wproc(wp, ws, wiq)
+    _, (audio,), _ = wproc(wp, ws, wiq)
     assert audio.shape[0] == d
 
     # ---- 2b. the fast profile's planar form at 2 shards: (2, 256)
@@ -69,7 +86,7 @@ def dryrun_multichip(n_shards: int, device=None) -> str:
                                    chunk_in=2 * 512 * 128, mode="AM",
                                    taps_per=4, n_taps=129, **fast)
     fproc, fp, fs_, fiq = _wideband(fcfg, 2, device, rng)
-    _, faudio, _ = fproc(fp, fs_, fiq)
+    _, (faudio,), _ = fproc(fp, fs_, fiq)
     assert tuple(faudio.shape) == (2 * 128 * 4, 512)
 
     # ---- 2c. planar factorings per shard count: 4 shards on 512 channels
@@ -84,7 +101,7 @@ def dryrun_multichip(n_shards: int, device=None) -> str:
             proc4.planar_factors
         re16 = (np.real(z4) * 32768).astype(np.int16)
         im16 = (np.imag(z4) * 32768).astype(np.int16)
-        _, a4s, _ = proc4.process_n(p4, s4, ((re16, im16), z4))
+        _, a4s, _ = proc4(p4, s4, (re16, im16), z4)
         assert tuple(a4s[-1].shape) == (256 * 4, 512)
     if d >= 8:
         c8 = wideband.WidebandConfig(fs_in=2560 * 12_000, n_chan=2560,
@@ -93,7 +110,7 @@ def dryrun_multichip(n_shards: int, device=None) -> str:
         proc8, p8, s8, z8 = _wideband(c8, 8, device, rng)
         assert proc8.planar and proc8.planar_factors == (20, 128, 24), \
             proc8.planar_factors
-        _, a8, _ = proc8(p8, s8, z8)
+        _, (a8,), _ = proc8(p8, s8, z8)
         assert tuple(a8.shape) == (128 * 4, 2560)
 
     # ---- 2d. the quality profile's planar form at 2 shards
@@ -103,7 +120,7 @@ def dryrun_multichip(n_shards: int, device=None) -> str:
                                    **wideband.PROFILES["quality"])
     qproc, qp, qs, qz = _wideband(qcfg, 2, device, rng)
     assert qproc.planar, "quality planar form must be active at 2 shards"
-    _, qaudio, _ = qproc(qp, qs, qz)
+    _, (qaudio,), _ = qproc(qp, qs, qz)
     assert tuple(qaudio.shape) == (128 * 4, 512)
 
     # ---- 3. TP axis: distributed four-step FFT (one all_to_all)
@@ -129,6 +146,27 @@ def dryrun_multichip(n_shards: int, device=None) -> str:
             f"dist_fft n={nfft}, pipeline {tuple(paudio.shape)}")
 
 
+def _rank(rank: int, world: int, n_shards: int, device) -> str:
+    if device is None or str(device).startswith("cuda"):
+        import torch
+        torch.cuda.set_device(0)
+    return dryrun_multichip(n_shards, device)
+
+
+def dryrun_processes(n_shards: int, device, processes: int,
+                     timeout: float = 600.0) -> str:
+    """`dryrun_multichip` in `processes` processes at once, the mesh's
+    shards split over them; rank 0's summary line."""
+    with tempfile.TemporaryDirectory() as tmp:
+        lines = launch.spawn(_rank, processes, os.path.join(tmp, "store"),
+                             n_shards, device, timeout=timeout)
+    return f"{lines[0]} over {processes} processes"
+
+
 if __name__ == "__main__":
-    print(dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 8,
-                           sys.argv[2] if len(sys.argv) > 2 else None))
+    shards = int(sys.argv[1]) if len(sys.argv) > 1 else 8
+    dev = sys.argv[2] if len(sys.argv) > 2 else None
+    if len(sys.argv) > 3 and int(sys.argv[3]) > 1:
+        print(dryrun_processes(shards, dev, int(sys.argv[3])))
+    else:
+        print(dryrun_multichip(shards, dev))

@@ -4,11 +4,12 @@ the capture placed on the mesh with its shard axis.
 Counterpart of `supersdr_tpu/parallel/ingest.py`. In the reference every
 host reads the time range its devices own and `make_global_iq` assembles
 the per-process blocks into one sharded array, so no host holds the whole
-capture. The port's mesh lives on one device (`parallel/mesh.py`), so in
-one process the capture is that process's block, laid out `[*batch, D,
-n_local]` on `mesh.device`. Several processes need the transport across
-cards (ROADMAP queue 1 #10c), which does not exist yet: `make_global_iq`
-raises there.
+capture. Here a process's block stays that process's: laid out `[*batch,
+d_local, n_local]` on `mesh.device`, its time shards on the tensor axis,
+the mesh's transport (`parallel/collectives.py`) reaching the other
+processes' shards (gloo on the CPU; CUDA IPC between processes on one
+card; across cards not built). In one process the block is the whole
+capture.
 """
 
 from __future__ import annotations
@@ -21,25 +22,21 @@ from supersdr_tpu_torch.parallel.mesh import TIME_AXIS, Mesh
 
 def initialize_distributed(coordinator: str | None = None,
                            num_processes: int | None = None,
-                           process_id: int | None = None) -> None:
+                           process_id: int | None = None,
+                           backend: str = "gloo") -> None:
     """`torch.distributed.init_process_group` when a coordinator address
-    is given ("host:port" or a URL such as "tcp://localhost:29500"), with
-    NCCL where there is a card and gloo elsewhere; a no-op otherwise."""
+    is given ("host:port" or a URL such as "tcp://localhost:29500" or
+    "file:///path"); a no-op otherwise. The backend is gloo unless the
+    caller asks for another: the mesh's transport moves its data itself
+    (`parallel/collectives.py`) over a gloo group and refuses any other
+    (an NCCL group puts each process on a card of its own, and across
+    cards is not built); NCCL also refuses two ranks on one card."""
     if coordinator is None:
         return
     import torch.distributed as dist
     url = coordinator if "://" in coordinator else f"tcp://{coordinator}"
-    dist.init_process_group(
-        backend="nccl" if torch.cuda.is_available() else "gloo",
-        init_method=url, world_size=num_processes, rank=process_id)
-
-
-def _process_grid() -> tuple[int, int]:
-    """(this process's rank, the number of processes)."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    dist.init_process_group(backend=backend, init_method=url,
+                            world_size=num_processes, rank=process_id)
 
 
 def local_time_range(total_samples: int, mesh: Mesh,
@@ -47,7 +44,7 @@ def local_time_range(total_samples: int, mesh: Mesh,
     """[start, end) of the capture's time axis this process owns: its
     equal share of the mesh's time shards (all of them in one process)."""
     n_time = mesh.shape[time_axis]
-    rank, world = _process_grid()
+    rank, world = mesh.rank, mesh.world
     if n_time % world:
         raise ValueError(f"{n_time} time shards do not split over {world} "
                          f"processes")
@@ -58,22 +55,19 @@ def local_time_range(total_samples: int, mesh: Mesh,
 
 def make_global_iq(local_block, global_shape: tuple[int, ...], mesh: Mesh,
                    time_axis: str = TIME_AXIS) -> torch.Tensor:
-    """The capture on `mesh.device` with its time shard axis: a block
-    [*batch, n] (this process's range, `local_time_range`; in one process
-    the whole capture, of `global_shape`) → [*batch, D, n/D], D the
-    mesh's time shards. `.flatten(-2)` gives the sharded chain's input."""
-    _, world = _process_grid()
-    if world > 1:
-        raise NotImplementedError(
-            "a capture across processes needs the transport across cards "
-            "(ROADMAP queue 1 #10c)")
+    """This process's part of the capture on `mesh.device` with its time
+    shard axis: a block [*batch, n / world] (this process's range,
+    `local_time_range`, of a capture of `global_shape`; in one process the
+    whole capture) → [*batch, d_local, n/D], D the mesh's time shards.
+    `.flatten(-2)` gives the sharded chain's input."""
     block = torch.as_tensor(np.asarray(local_block)) \
         if not isinstance(local_block, torch.Tensor) else local_block
-    if tuple(block.shape) != tuple(global_shape):
-        raise ValueError(f"block {tuple(block.shape)} is not the global "
-                         f"shape {tuple(global_shape)} in one process")
-    D = mesh.shape[time_axis]
-    if block.shape[-1] % D:
-        raise ValueError(f"{block.shape[-1]} samples do not split over {D} "
+    D, world = mesh.shape[time_axis], mesh.world
+    want = (*global_shape[:-1], global_shape[-1] // world)
+    if tuple(block.shape) != want or global_shape[-1] % world:
+        raise ValueError(f"block {tuple(block.shape)} is not this "
+                         f"process's {want} of {tuple(global_shape)}")
+    if global_shape[-1] % D:
+        raise ValueError(f"{global_shape[-1]} samples do not split over {D} "
                          f"time shards")
-    return block.to(mesh.device).reshape(*block.shape[:-1], D, -1)
+    return block.to(mesh.device).reshape(*block.shape[:-1], D // world, -1)

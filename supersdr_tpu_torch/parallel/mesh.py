@@ -7,17 +7,23 @@ software-radio pipeline:
   time  contiguous blocks of one stream, coupled by halo exchanges of
         filter history and by two-level scans
 
-A port `Mesh` is a pair of shard counts and one `torch.device`: the shards
-are slices of tensor axes on that device, there is no device list.
+A port `Mesh` is a pair of shard counts, one `torch.device` and the
+transport that moves data between its shards (`comm`,
+`parallel/collectives.py`). In one process the shards are slices of tensor
+axes on that device. With a `torch.distributed` group of `world` processes
+each process holds `d_local = n_time / world` consecutive time shards,
+rank r the global shards r·d_local …; the 'chan' axis stays whole in every
+process (it is a batch axis and moves nothing).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
 from supersdr_tpu_torch.device import default_device  # noqa: F401 (alias)
+from supersdr_tpu_torch.parallel import collectives
 
 CHAN_AXIS = "chan"
 TIME_AXIS = "time"
@@ -28,20 +34,38 @@ class Mesh:
     n_chan: int
     n_time: int
     device: torch.device
+    comm: collectives.Transport = field(
+        default_factory=collectives.Transport, compare=False, repr=False)
 
     @property
     def shape(self) -> dict:
         return {CHAN_AXIS: self.n_chan, TIME_AXIS: self.n_time}
 
+    @property
+    def rank(self) -> int:
+        return self.comm.rank
+
+    @property
+    def world(self) -> int:
+        return self.comm.world
+
+    @property
+    def d_local(self) -> int:
+        """Time shards in this process."""
+        return self.n_time // self.comm.world
+
 
 def make_mesh(n_chan: int | None = None, n_time: int | None = None,
-              device=None, n_shards: int | None = None) -> Mesh:
+              device=None, n_shards: int | None = None, *,
+              world: int | None = None) -> Mesh:
     """A ('chan', 'time') mesh of n_chan × n_time shards on `device` (the
     current CUDA device unless one is given; without a card, pass
     device="cpu"). With `n_shards` (the reference's device count) a
     missing axis is filled in from it — neither given: all shards on the
     channel axis — and the product must equal it; without it a missing
-    axis is 1."""
+    axis is 1. The time shards split over the processes of an initialised
+    `torch.distributed` group (`collectives.for_processes`; `world=1`: all
+    in this process)."""
     if n_shards is not None:
         if n_chan is None and n_time is None:
             n_chan, n_time = n_shards, 1
@@ -56,9 +80,12 @@ def make_mesh(n_chan: int | None = None, n_time: int | None = None,
     if n_chan < 1 or n_time < 1:
         raise ValueError(f"shard counts must be positive, got "
                          f"{n_chan}x{n_time}")
-    return Mesh(int(n_chan), int(n_time), default_device(device))
+    device = default_device(device)
+    return Mesh(int(n_chan), int(n_time), device,
+                collectives.for_processes(int(n_time), device, world))
 
 
-def time_mesh(n_time: int, device=None) -> Mesh:
+def time_mesh(n_time: int, device=None, *, world: int | None = None
+              ) -> Mesh:
     """All shards on the time axis (pure sequence-parallel)."""
-    return make_mesh(1, n_time, device=device)
+    return make_mesh(1, n_time, device=device, world=world)

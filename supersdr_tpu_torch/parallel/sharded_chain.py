@@ -12,11 +12,14 @@ Counterpart of `supersdr_tpu/parallel/sharded_chain.py`: the same chain as
           DC blocker, AGC recurrences   two-level scans (2·D scalars each)
         so a shard's traffic is O(n_taps + D) whatever its length.
 
-The body is written once over `[n_chan, D, n_local]`, so one launch of
-each op serves every shard; whatever crosses shards goes through
-`parallel/collectives.py`. The sharded program equals the serial chain on
-the whole capture up to float rounding, and the stream state entering and
-leaving a call is the serial chain's, so consecutive calls chain as the
+The body is written once over `[n_chan, D_local, n_local]`, so one launch
+of each op serves every shard of this process; whatever crosses shards
+goes through the mesh's transport (`parallel/collectives.py`), in this
+process or, with a process group, across processes (each process holding
+D_local = D / world consecutive time shards). The sharded program equals
+the serial chain on the whole capture up to float rounding, and the
+stream state entering and leaving a call is the serial chain's (the last
+global shard's, on every process), so consecutive calls chain as the
 serial version does.
 """
 
@@ -42,41 +45,43 @@ SHARD_AXIS = -2
 
 
 def _last(t: torch.Tensor) -> torch.Tensor:
-    """The last time shard's value of a per-shard state leaf [C, D, …]."""
+    """This process's last time shard's value of a per-shard state leaf
+    [C, D_local, …] (the transport's `replicate` then hands every process
+    the last global shard's)."""
     return t[:, -1]
 
 
 def _sharded_body(cfg: ChainConfig, n_time: int, params: ChainParams,
-                  state: ChainState, iq: cx.CX, halo_impl: str
+                  state: ChainState, iq: cx.CX, comm
                   ) -> tuple[ChainState, ChainOutput]:
-    """iq: CX [C, n_time·chunk]. Every op below runs on [C, D, chunk]
-    with (C, D) as its batch; the state leaves are [C] and seed shard 0."""
+    """iq: CX [C, D_local·chunk], this process's shards of the call. Every
+    op below runs on [C, D_local, chunk] with (C, D_local) as its batch;
+    the state leaves are [C] and seed global shard 0."""
     plan = cfg.os_plan
-    D = n_time
+    D = n_time // comm.world
     C = iq.re.shape[0]
     n_rows = cfg.chunk // cfg.os_block
     x = torch.complex(iq.re, iq.im).reshape(C, D, cfg.chunk)
-    t_idx = torch.arange(D, dtype=torch.float32, device=x.device)
+    t_idx = comm.shard_index(x)[:, 0].to(torch.float32)
 
     # 0. noise blanker: the median is the shard's own, as the reference's
     if cfg.blanker_enabled:
         x = squelch_ops.apply_blanker(params.blanker, x)
 
-    # 1. NCO with a phase base per time shard: shard t starts at t·chunk
+    # 1. NCO with a phase base per time shard: global shard t starts at
+    #    t·chunk
     inc = params.nco.block_inc[..., None]
     phase0 = torch.remainder(state.phase[..., None] + t_idx * inc, 1.0)
     nco = mixer.NCOParams(ramp=params.nco.ramp[..., None, :], block_inc=inc)
     _, x = mixer.mix(nco, phase0, x)
     phase_out = torch.remainder(state.phase
-                                + (t_idx[-1] + 1.0) * params.nco.block_inc,
-                                1.0)
+                                + float(n_time) * params.nco.block_inc, 1.0)
 
     # 2. passband; the history is the left neighbour's tail, and the
-    #    incoming stream state on shard 0
+    #    incoming stream state on global shard 0
     ov = plan.overlap
     if ov:
-        head = collectives.left_halo(x, ov, head0=state.os_carry,
-                                     impl=halo_impl)
+        head = comm.left_halo(x, ov, head0=state.os_carry)
     else:
         head = x[..., :0]
     if cfg.passband_impl == "matmul":
@@ -96,7 +101,7 @@ def _sharded_body(cfg: ChainConfig, n_time: int, params: ChainParams,
     mode = cfg.mode.upper()
     dstate, audio = demod_ops.demodulate(
         cfg.mode, state.demod, y, cfg.iq_rate, max_dev_hz=cfg.max_dev_hz,
-        shard_axis=SHARD_AXIS, halo_impl=halo_impl)
+        shard_axis=SHARD_AXIS, comm=comm)
     if mode == "AM":
         dstate = dstate._replace(dc_x=_last(dstate.dc_x),
                                  dc_y=_last(dstate.dc_y))
@@ -106,7 +111,7 @@ def _sharded_body(cfg: ChainConfig, n_time: int, params: ChainParams,
     astate, audio = agc_ops.apply(params.agc, state.agc, audio,
                                   hang_window=cfg.hang_window,
                                   decimation=cfg.agc_decimation,
-                                  shard_axis=SHARD_AXIS, halo_impl=halo_impl)
+                                  shard_axis=SHARD_AXIS, comm=comm)
     astate = agc_ops.AGCState(*(_last(v) for v in astate))
 
     # the squelch gates each shard on its own RSSI from the incoming gate
@@ -134,25 +139,25 @@ def _sharded_body(cfg: ChainConfig, n_time: int, params: ChainParams,
             # block-aligned: chunk % M == 0)
             rplan = cfg.rational_plan
             k = -(-rplan.history // rplan.L)
-            halo_in = collectives.left_halo(audio, k, impl=halo_impl)
+            halo_in = comm.left_halo(audio, k)
             up = audio.new_zeros(C, D, k * rplan.L)
             up[..., :: rplan.L] = halo_in
             ihead = up[..., k * rplan.L - rplan.history:]
-            ihead[:, 0] = state.interp_carry
+            if comm.rank == 0:                  # global shard 0
+                ihead[:, 0] = state.interp_carry
             icarry, out_audio = resample.rational_resample_block(
                 rplan, params.P_interp, ihead, audio)
         else:
             iplan = cfg.interp_plan
-            ihead = collectives.left_halo(audio, iplan.history,
-                                          head0=state.interp_carry,
-                                          impl=halo_impl)
+            ihead = comm.left_halo(audio, iplan.history,
+                                   head0=state.interp_carry)
             icarry, out_audio = resample.interpolate(
                 iplan, params.P_interp, ihead, audio, cfg.resample_impl)
         icarry = _last(icarry)
         out_audio = out_audio.reshape(C, -1)
-    new_state = ChainState(phase=phase_out, os_carry=os_carry, demod=dstate,
-                           agc=astate, interp_carry=icarry,
-                           squelch=sq_state)
+    new_state = comm.replicate(ChainState(
+        phase=phase_out, os_carry=os_carry, demod=dstate, agc=astate,
+        interp_carry=icarry, squelch=sq_state))
     return new_state, ChainOutput(
         audio=out_audio, rssi=rssi.reshape(C, -1),
         baseband=cx.CX(y.real.reshape(C, -1), y.imag.reshape(C, -1)))
@@ -161,15 +166,21 @@ def _sharded_body(cfg: ChainConfig, n_time: int, params: ChainParams,
 def build(cfg: ChainConfig, mesh: Mesh, halo_impl: str = "rdma"):
     """The sharded chain for `mesh`; cfg.chunk is the per-shard length.
     Returns process(params, state, iq) where
-      iq    : [n_chan, chunk · n_time], CX, complex tensor or complex numpy
-      state : leaves with a leading [n_chan] axis
+      iq    : [n_chan, chunk · d_local], this process's time shards of the
+              call (all n_time of them in one process; with a process
+              group rank r's are global shards r·d_local …, e.g. from
+              `ingest.make_global_iq(...).flatten(-2)`), CX, complex tensor
+              or complex numpy
+      state : leaves with a leading [n_chan] axis, the same on every process
     and the returned state is the stream state at the end of the call
-    (the last time shard's), usable for the next call. Everything runs on
+    (the last global time shard's, on every process), usable for the next
+    call; the output is this process's shards. Everything runs on
     `mesh.device`, where the params and the state must lie. halo_impl:
     "rdma" exchanges halos with the halo kernel (`ops/cuda/halo.py`) on a
     CUDA device, "ppermute" with plain slice copies; on the CPU both are
     the plain version."""
     n_time = mesh.shape[TIME_AXIS]
+    d_local = mesh.d_local
     if cfg.passband_impl == "matmul_real":
         raise ValueError("passband_impl='matmul_real' is serial-only for "
                          "now (its rotation params are passband-dependent "
@@ -181,6 +192,7 @@ def build(cfg: ChainConfig, mesh: Mesh, halo_impl: str = "rdma"):
     if halo_impl not in collectives.HALO_IMPLS:
         raise ValueError(f"halo_impl must be one of "
                          f"{collectives.HALO_IMPLS}")
+    comm = mesh.comm.using(halo_impl)
 
     def process(params: ChainParams, state: ChainState, iq
                 ) -> tuple[ChainState, ChainOutput]:
@@ -189,13 +201,13 @@ def build(cfg: ChainConfig, mesh: Mesh, halo_impl: str = "rdma"):
             raise ValueError(f"params lie on {dev}, the mesh on "
                              f"{mesh.device}")
         iq = cx.as_cx(iq, device=dev)
-        if iq.re.ndim != 2 or iq.re.shape[-1] != cfg.chunk * n_time:
-            raise ValueError(f"iq must be [n_chan, {cfg.chunk}·{n_time}], "
+        if iq.re.ndim != 2 or iq.re.shape[-1] != cfg.chunk * d_local:
+            raise ValueError(f"iq must be [n_chan, {cfg.chunk}·{d_local}], "
                              f"got {tuple(iq.re.shape)}")
         if iq.re.shape[0] % mesh.n_chan:
             raise ValueError(f"{iq.re.shape[0]} receivers do not split "
                              f"over {mesh.n_chan} channel shards")
-        return _sharded_body(cfg, n_time, params, state, iq, halo_impl)
+        return _sharded_body(cfg, n_time, params, state, iq, comm)
 
     return process
 

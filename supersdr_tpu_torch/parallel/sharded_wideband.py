@@ -13,16 +13,22 @@ Ulysses-style reshard). Two phases with different natural shardings:
      communication. Last, the last time shard's input tail is broadcast
      (`collectives.broadcast_last`) as the next call's PFB history.
 
-The mesh lives on one device, as `parallel/sharded_chain.py`'s: the D
-shards are a leading tensor axis there, one launch of each op serves every
-shard, and only `collectives` knows that shards are neighbours. The tiers
-are the reference's:
+The shards are a leading tensor axis, as in `parallel/sharded_chain.py`:
+one launch of each op serves every shard of a process, and only the mesh's
+transport (`collectives`) knows that shards are neighbours. In one process
+the axis holds all D shards; with a process group of `world` processes it
+holds this process's D_local = D / world (rank r: global shards r·D_local
+…), and after the reshard each process holds C_pad / world rows (its
+planes, or its bins on the other tiers): its chain state and its audio and
+RSSI columns are those rows (`process.gather_state` / `gather_rows` gather
+them). The tiers are the reference's:
 
   planar      the channelizer kernel writes raw planes [D, n1_pad, f_local,
               n2], with `n1_pad − n1` phantom planes of zeros when D does
               not divide n1; the all_to_all over the plane axis gives
-              [D, n1_pad/D, D·f_local, n2], which on one device is the
-              planes of every channel shard, [n1_pad, frames, n2]: ONE FIR
+              [D, n1_pad/D, D·f_local, n2], which in one process is the
+              planes of every channel shard, [n1_pad, frames, n2] (a
+              process's n1_pad/world of them across processes): ONE FIR
               tail launch filters them, on a state kept in (padded) planar
               channel order. The factoring is chosen per shard count
               (`_planar_factors_for`), preferring the serial factoring's
@@ -47,7 +53,7 @@ port's does, so a passband too short for one goes to the time-major tier.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import numpy as np
@@ -70,22 +76,42 @@ I16_SCALE = 1.0 / 32768.0
 
 @dataclass(frozen=True)
 class Mesh:
-    """One axis of `n_shards` shards on one `torch.device`."""
+    """One axis of `n_shards` shards on one `torch.device`, split over the
+    processes of `comm`."""
     n_shards: int
     device: torch.device
+    comm: collectives.Transport = field(
+        default_factory=collectives.Transport, compare=False, repr=False)
+
+    @property
+    def rank(self) -> int:
+        return self.comm.rank
+
+    @property
+    def world(self) -> int:
+        return self.comm.world
+
+    @property
+    def d_local(self) -> int:
+        """Shards in this process."""
+        return self.n_shards // self.comm.world
 
 
-def make_mesh(n_shards: int | None = None, device=None) -> Mesh:
+def make_mesh(n_shards: int | None = None, device=None, *,
+              world: int | None = None) -> Mesh:
     """A mesh of `n_shards` shards (the reference's device count) on
     `device` (the current CUDA device unless one is given; without a card
     pass device="cpu"). None: as many shards as the host has CUDA devices
-    (the reference's default, every device), 1 on the CPU."""
+    (the reference's default, every device), 1 on the CPU. The shards split
+    over the processes of an initialised `torch.distributed` group
+    (`collectives.for_processes`; `world=1`: all in this process)."""
     device = default_device(device)
     if n_shards is None:
         n_shards = torch.cuda.device_count() if device.type == "cuda" else 1
     if n_shards < 1:
         raise ValueError(f"n_shards must be positive, got {n_shards}")
-    return Mesh(int(n_shards), device)
+    return Mesh(int(n_shards), device,
+                collectives.for_processes(int(n_shards), device, world))
 
 
 def _planar_factors_for(n_chan: int, d: int, n2_pref: int = 256
@@ -181,31 +207,36 @@ def _map_state(fn, tree):
                         for v in tree))
 
 
-def _as_shards(iq, d: int, n: int):
+def _as_shards(iq, d: int, n: int, comm):
     """A coerced chunk of n samples (CX of float32 planes or an int16
-    pair) as [d, n/d] planes, views of the chunk: (re, im, is_i16)."""
+    pair) as this process's [d_local, n/d] planes, views of the chunk:
+    (re, im, is_i16)."""
     re, im = (iq.re, iq.im) if isinstance(iq, cx.CX) else iq
     if tuple(re.shape) != (n,) or tuple(im.shape) != (n,):
         raise ValueError(f"a chunk must be [{n}] samples, got "
                          f"{tuple(re.shape)}")
-    return re.reshape(d, -1), im.reshape(d, -1), re.dtype == torch.int16
+    dl = d // comm.world
+    re, im = (p.reshape(d, -1)[comm.rank * dl:(comm.rank + 1) * dl]
+              for p in (re, im))
+    return re, im, re.dtype == torch.int16
 
 
 def _halo_head(re: torch.Tensor, im: torch.Tensor, carry: cx.CX,
-               history: int) -> cx.CX:
-    """Each shard's PFB history [d, history], float32: the left
+               history: int, comm) -> cx.CX:
+    """Each shard's PFB history [d_local, history], float32: the left
     neighbour's last samples through the halo exchange, the carried stream
-    state on shard 0; int16 halos are dequantized (the head is a small
-    buffer)."""
+    state on global shard 0; int16 halos are dequantized (the head is a
+    small buffer)."""
     if re.dtype != torch.int16:
-        hr, hi = collectives.left_halo((re, im), history,
-                                       head0=(carry.re, carry.im))
+        hr, hi = comm.left_halo((re, im), history,
+                                head0=(carry.re, carry.im))
         return cx.CX(hr, hi)
-    hr, hi = collectives.left_halo((re, im), history)
+    hr, hi = comm.left_halo((re, im), history)
     hr = hr.float() * I16_SCALE
     hi = hi.float() * I16_SCALE
-    hr[0] = carry.re
-    hi[0] = carry.im
+    if comm.rank == 0:                   # global shard 0
+        hr[0] = carry.re
+        hi[0] = carry.im
     return cx.CX(hr, hi)
 
 
@@ -224,8 +255,17 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
     CX, complex numpy or (re_i16, im_i16) int16 pairs per chunk, kinds mixed
     freely. Params and state are the serial wideband's and must lie on
     `mesh.device`.
+
+    With a process group every process passes the whole chunk and its own
+    form of the state, `process.local_state(state)` of the serial one
+    (whose chain part holds this process's rows), and gets back that form
+    and its rows: `process.rows` columns of the audio and rows of the RSSI
+    (phantom planar rows included); `process.gather_rows(t, dim)` and
+    `process.gather_state(state)` give every process the whole audio, RSSI
+    and serial state.
     """
     d = mesh.n_shards
+    comm = mesh.comm
     mp = plan_mesh(cfg, d, planar_waste_max)
     plan = wb.pfb_plan(cfg)
     h = plan.history
@@ -253,7 +293,14 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
     # phantom rows, which keep the padded tail of the state
     state_rows = torch.as_tensor(
         np.concatenate([order, np.arange(M, C_pad)]), device=mesh.device)
-    bin_rows = torch.arange(M, device=mesh.device)
+    # the chain state a call holds: in one process the padded state in bin
+    # order, its rows read through state_rows (as the serial planar path
+    # reads them); across processes this process's rows of it, in row
+    # order (`local_state`)
+    n_rows = C_pad // comm.world
+    my_rows = state_rows[comm.rank * n_rows:(comm.rank + 1) * n_rows]
+    held_order = state_rows if comm.world == 1 else \
+        torch.arange(n_rows, device=mesh.device)
 
     def pad0(v):
         if C_pad == M:
@@ -261,32 +308,36 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
         return torch.cat([v, v.new_zeros((C_pad - M,) + v.shape[1:])])
 
     def step_planar(params, state, re, im, i16):
-        head = _halo_head(re, im, state.pfb_carry, h)
+        head = _halo_head(re, im, state.pfb_carry, h, comm)
         x = (re, im) if i16 else cx.CX(re, im)
         tails, (raw_r, raw_i) = channelize_fused.channelize_fused_c(
             plan, params.W_pfb, head, x, factors=(n1, n2), bf16_mxu=fast,
             out_dtype=raw_dtype, n1_pad=n1_pad)
         # reshard over the plane axis: [d, n1_pad, f_local, n2] → [d,
-        # n1_pad/d, d·f_local, n2]; on one device every channel shard's
-        # planes together are [n1_pad, frames, n2]
+        # n1_pad/d, d·f_local, n2]; a process's channel shards' planes
+        # together are its n1_pad/world planes, [planes, frames, n2]
         nf = d * mp.f_local
-        raw_r = collectives.all_to_all(raw_r, 0, 1).reshape(C_pad // n2, nf,
-                                                              n2)
-        raw_i = collectives.all_to_all(raw_i, 0, 1).reshape(C_pad // n2, nf,
-                                                              n2)
-        # next chunk's FIR history in bin order (row col·n1 + k1 is bin
-        # k2·n1 + k1), the phantom rows' zeros after it
-        os_carry = cx.CX(*(pad0(r[:n1, -ov:, :].permute(2, 0, 1)
-                                .reshape(M, ov).float())
-                           for r in (raw_r, raw_i)))
+        raw_r = comm.all_to_all(raw_r, 0, 1).reshape(-1, nf, n2)
+        raw_i = comm.all_to_all(raw_i, 0, 1).reshape(-1, nf, n2)
+        # next chunk's FIR history in the held order: in one process bin
+        # order (row k1·n2 + col is bin col·n1 + k1), the phantom rows'
+        # zeros after it; across processes row order
+        if comm.world == 1:
+            os_carry = cx.CX(*(pad0(r[:n1, -ov:, :].permute(2, 0, 1)
+                                    .reshape(M, ov).float())
+                               for r in (raw_r, raw_i)))
+        else:
+            os_carry = cx.CX(*(r[:, -ov:, :].permute(0, 2, 1)
+                               .reshape(n_rows, ov).float()
+                               for r in (raw_r, raw_i)))
         cstate, audioT, rssi = chain_mod.process_tail_tmajor(
             ccfg, params.chain, state.chain, state.chain.phase, os_carry,
-            fir_x3=(raw_r, raw_i), chan_order=state_rows,
+            fir_x3=(raw_r, raw_i), chan_order=held_order,
             audio_dtype=audio_dtype)
         return tails, cstate, audioT, rssi
 
     def step_tmajor(params, state, re, im, i16):
-        head = _halo_head(re, im, state.pfb_carry, h)
+        head = _halo_head(re, im, state.pfb_carry, h, comm)
         x = (re, im) if i16 else cx.CX(re, im)
         tails, (tr, ti) = channelize_fused.channelize_fused_c(
             plan, params.W_pfb, head, x,
@@ -294,16 +345,17 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
             out_layout="time")
         # reshard over the channel axis: [d, f_local, M] → [d, d·f_local,
         # M/d], channel shard c holding bins c·M/d …, in bin order
-        tr = collectives.all_to_all(tr, 1, 0)
-        ti = collectives.all_to_all(ti, 1, 0)
-        os_carry = cx.CX(*(p[:, -ov:, :].permute(0, 2, 1).reshape(M, ov)
-                           for p in (tr, ti)))
+        tr = comm.all_to_all(tr, 1, 0)
+        ti = comm.all_to_all(ti, 1, 0)
+        os_carry = cx.CX(*(p[:, -ov:, :].permute(0, 2, 1)
+                           .reshape(n_rows, ov) for p in (tr, ti)))
         kw = dict(audio_dtype=audio_dtype)
         if params.chain.W_tailpass is not None and (M // d) % 8 == 0:
             # the FIR tail reads the shards' planes as they lie
-            kw.update(fir_x3=(tr, ti), chan_order=bin_rows)
+            kw.update(fir_x3=(tr, ti), chan_order=held_order)
         else:
-            xT = cx.CX(*(p.movedim(0, 1).reshape(-1, M) for p in (tr, ti)))
+            xT = cx.CX(*(p.movedim(0, 1).reshape(-1, n_rows)
+                         for p in (tr, ti)))
             if params.chain.W_tailpass is not None:
                 kw["fir_x"] = xT
             else:
@@ -317,13 +369,14 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
         return tails, cstate, audioT, rssi
 
     def step_fallback(params, state, re, im, i16):
-        head = _halo_head(re, im, state.pfb_carry, h)
+        head = _halo_head(re, im, state.pfb_carry, h, comm)
         if i16:
             re, im = re.float() * I16_SCALE, im.float() * I16_SCALE
         tails, chans = wb.channelize_dispatch(cfg, params, head,
                                               cx.CX(re, im))
-        # reshard: [d, M, f_local] → [d, M/d, d·f_local], i.e. [M, frames]
-        chans = collectives.all_to_all(chans, 0, 1).reshape(M, -1)
+        # reshard: [d, M, f_local] → [d, M/d, d·f_local], i.e. this
+        # process's [M/world, frames]
+        chans = comm.all_to_all(chans, 0, 1).reshape(n_rows, -1)
         cstate, out = chain_mod.process_traced(ccfg, params.chain,
                                                state.chain, chans)
         audio = out.audio
@@ -334,6 +387,14 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
     step = {"planar": step_planar, "tmajor": step_tmajor,
             "fallback": step_fallback}[mp.tier]
 
+    def to_bins(chain):
+        """All rows in row order → the serial state (M rows, bin order)."""
+        def one(v):
+            full = torch.empty_like(v)
+            full[state_rows] = v
+            return full[:M]
+        return _map_state(one, chain)
+
     def process_n(params, state, iqs):
         """N consecutive chunks, state threaded through; returns (state,
         audio tuple, RSSI of the last chunk)."""
@@ -341,16 +402,22 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
         if dev != mesh.device:
             raise ValueError(f"params lie on {dev}, the mesh on "
                              f"{mesh.device}")
-        if planar:       # the padded state, its rows after the real ones
+        if comm.world == 1:
             state = state._replace(chain=_map_state(pad0, state.chain))
+        elif state.chain.agc.gain_db.shape[0] != n_rows:
+            raise ValueError(f"across processes the state holds this "
+                             f"process's {n_rows} rows "
+                             f"(process.local_state), not "
+                             f"{state.chain.agc.gain_db.shape[0]}")
         audios, rssi = [], None
         for iq in iqs:
-            re, im, i16 = _as_shards(wb._coerce(iq, dev), d, cfg.chunk_in)
+            re, im, i16 = _as_shards(wb._coerce(iq, dev), d, cfg.chunk_in,
+                                     comm)
             tails, cstate, audio, rssi = step(params, state, re, im, i16)
-            last = cx.CX(*(collectives.broadcast_last(t)[0] for t in tails))
+            last = cx.CX(*(comm.broadcast_last(t)[0] for t in tails))
             state = wb.WidebandState(pfb_carry=last, chain=cstate)
             audios.append(audio)
-        if planar:
+        if comm.world == 1 and C_pad != M:
             state = state._replace(
                 chain=_map_state(lambda v: v[:M], state.chain))
             audios = [a[:, :M] for a in audios]
@@ -362,6 +429,29 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
         st, audios, rssi = process_n(params, state, (iq,))
         return st, audios[0], rssi
 
+    def gather_rows(t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every process's rows of an audio (dim 1, time-major; 0 for
+        chan-major audio and the RSSI), the phantom rows dropped: what
+        one process returns, in `channel_order`."""
+        return comm.gather(t, dim).narrow(dim, 0, M)
+
+    def local_state(state: wb.WidebandState) -> wb.WidebandState:
+        """The form of the serial state (M rows, bin order) that this
+        process passes: its rows, in row order (in one process the state
+        itself)."""
+        if comm.world == 1:
+            return state
+        return state._replace(chain=_map_state(lambda v: pad0(v)[my_rows],
+                                               state.chain))
+
+    def gather_state(state: wb.WidebandState) -> wb.WidebandState:
+        """The serial wideband's state (M rows, bin order) from every
+        process's rows."""
+        if comm.world == 1:
+            return state
+        return state._replace(chain=to_bins(_map_state(
+            lambda v: comm.gather(v, 0), state.chain)))
+
     process.process_n = process_n
     # audio/RSSI row → PFB bin: the planar order of the mesh's factoring on
     # the planar tier, bin order otherwise
@@ -369,6 +459,10 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
     process.planar = planar
     process.planar_factors = mp.factors if planar else None
     process.tier = mp.tier
+    process.rows = (comm.rank * n_rows, (comm.rank + 1) * n_rows)
+    process.gather_rows = gather_rows
+    process.local_state = local_state
+    process.gather_state = gather_state
     return process
 
 

@@ -14,11 +14,14 @@ inputs and the plain versions are `chip_smoke.py`'s at HEADLINE (2560
 channels × 16128 frames; the time store at 16200). NAMES, comma
 separated: chan_fast, chan_quality (float32 and int16 raw planes and the
 time store), tail_fast, tail_quality (the FIR tail on the channelizer's
-planes), am (the non-FIR tail). In the first turn every kernel is also held
-against its plain version and the SNR printed (nothing is asserted: a copy
-with a phase compiled out disagrees by design). Each process prints one
-line `RESULT <tree> {name: [ms, ms], ...}`: two CUDA-event means of 10
-launches each.
+planes), am (the non-FIR tail); and, by name only, two of `chip_smoke.py`'s
+phases whole, end to end: sharded (SHARDED and the 2 × 4 grid, sharded and
+serial ms a call) and mesh (HEADLINE through the sharded wideband on 8, 4
+and 2 shards, ms a chunk), which print their own checks and `time` lines.
+In the first turn every kernel is also held against its plain version and
+the SNR printed (nothing is asserted: a copy with a phase compiled out
+disagrees by design). Each process prints one line `RESULT <tree> {name:
+[ms, ms], ...}`: two CUDA-event means of 10 launches each.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import subprocess
 import sys
 
 ALL = ("chan_fast", "chan_quality", "tail_fast", "tail_quality", "am")
+PHASES = ("sharded", "mesh")
 
 
 def time_tree(what: tuple, check: bool) -> None:
@@ -43,6 +47,8 @@ def time_tree(what: tuple, check: bool) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # as chip_smoke.py
+    torch.backends.cudnn.allow_tf32 = False
     _build.load()
     gen = torch.Generator(device=dev).manual_seed(3)
     res = {}
@@ -77,6 +83,10 @@ def time_tree(what: tuple, check: bool) -> None:
         y = torch.randn(2560, 16128, generator=gen, device=dev,
                         dtype=torch.complex64) * 0.05
         run("am", *cs._am_case(2560, 16128, gen, device=dev, y=y))
+    if "sharded" in what:
+        cs.phase_sharded(dev)
+    if "mesh" in what:
+        cs.phase_mesh(dev, {})
     print("RESULT", os.path.basename(os.getcwd()), json.dumps(res),
           flush=True)
 
@@ -90,8 +100,8 @@ def main() -> int:
     ap.add_argument("--check", action="store_true")
     args = ap.parse_args()
     what = tuple(args.what.split(","))
-    if set(what) - set(ALL):
-        ap.error(f"--what takes {', '.join(ALL)}")
+    if set(what) - set(ALL + PHASES):
+        ap.error(f"--what takes {', '.join(ALL + PHASES)}")
     if args.one:
         time_tree(what, args.check)
         return 0
@@ -109,6 +119,7 @@ def main() -> int:
         [(t, False) for t in reversed(args.trees)]
     rc = 0
     for tree, check in turns:
+        print(f"TURN {tree}", flush=True)
         cmd = [sys.executable, me, "--one", "--what", args.what]
         rc |= subprocess.run(cmd + ["--check"] * check, cwd=tree).returncode
     return rc

@@ -41,6 +41,7 @@ FIXTURE = str(REPO / "tests" / "fixtures" / "kiwi_am_offair_12k.wav")
     "supersdr_tpu_torch.parallel.pipeline",
     "supersdr_tpu_torch.parallel.ingest",
     "supersdr_tpu_torch.parallel.dryrun",
+    "supersdr_tpu_torch.parallel.launch", "supersdr_tpu_torch.ops.cuda.peer",
     "supersdr_tpu_torch.cli", "supersdr_tpu_torch.apps.kiwi_session",
     "supersdr_tpu_torch.control.receiver", "supersdr_tpu_torch.control.links",
     "supersdr_tpu_torch.control.bandplan",
