@@ -17,15 +17,16 @@ Phases, each printed as it runs; any failure exits non-zero:
      and 5 × 512 channels, 40 frames), the FIR tail on AM, USB
      (complex taps) and NBFM on both tiers and with AGC hang, the fold, and
      the non-FIR tail on AM with hang off and on (500 and 40 ms), USB, NBFM
-     (FM carriers, manual AGC), with the power row and on time-major
-     planes; peak segments shorter than, as long as and longer than the
-     tails' 256-sample scan piece; plus ragged last tiles (13 frames for
-     the channelizer and the fold, 640 for both tails); the channelizer's
-     time-major store (float32 and int16 input) and the FIR tail's 2-D
-     source; and the
-     halo kernel, bit for bit, over float32, int16 and complex64, 1 to 256
-     samples, 1 to 8 shards, 1 to 2560 rows, strided sources, a −inf fill,
-     two hops and a head for shard 0;
+     (FM carriers, manual AGC), with the power row, handed the complex
+     passband itself (also 2547 and 2548 channels; rows at an odd offset,
+     and chain-major audio from the planes' entry, must be refused) and on
+     time-major planes; peak segments shorter than, as long as and longer
+     than the tails' 256-sample scan piece; plus ragged last tiles (13
+     frames for the channelizer and the fold, 640 for both tails); the
+     channelizer's time-major store (float32 and int16 input) and the FIR
+     tail's 2-D source; and the halo kernel, bit for bit, over float32,
+     int16 and complex64, 1 to 256 samples, 1 to 8 shards, 1 to 2560 rows,
+     strided sources, a −inf fill, two hops and a head for shard 0;
   4. the planar main path, `wideband.process_n`, at the HEADLINE shape
      (2560 channels, 16128 frames a chunk) on both profiles with float32
      and int16 chunks: launch counts and audio checks; then the chan-major
@@ -43,7 +44,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      receivers with the tail kernel, `chain.run_offline` for one 12 kHz and
      one 20.25 kHz receiver, and a MID chan-major run through the fused
      channelizer and the tail kernel, each held against the same call on
-     the CPU;
+     the CPU; the non-FIR tail as `chain.process` runs it on 128 and 2560
+     receivers × 2048 (against its plain version, timed, with its grid,
+     and the call's ms);
   7. the sharded receiver chain (SHARDED: `parallel.sharded_chain.build` on
      8 receivers × 8 time shards of 131072 samples, AM with the matmul
      passband, and on a 2 × 4 chan × time grid, USB with the fft passband;
@@ -130,6 +133,9 @@ paths, its time, its plain version's, its bound on this card (bytes over
 3.35 TB/s against operations over the peak rate of their type) and, where
 one PyTorch call computes the same function, that call's time; the
 channelizer's and the FIR tail's also their times at the mesh's shapes.
+The non-FIR tail has two lines: `chain_tail_am_c` (the complex passband,
+chain-major audio: timed at CHANMAJOR and on the two batches) and
+`chain_tail_am` (time-major planes: timed at the 33-tap time-major branch).
 The last lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. It exits non-zero, printing no result,
 when no CUDA device is present. It imports nothing of JAX.
@@ -547,11 +553,12 @@ def _am_case(C: int, nf: int, gen, *, device, mode: str = "AM",
              tile: int | None = None):
     """(wrapper call, plain call) of the non-FIR tail on a fresh state.
     On y [C, nf] (chain-major complex, random noise or FM carriers unless
-    given) read through strided views and written chain-major, as the
-    chain's tail tier runs it. With yT, a (re, im) pair of contiguous
-    time-major planes [nf, C]: read as they lie and written time-major
-    with the power row, as the time-major wideband tier runs it. tile: the
-    tail tile (the peak segment) in place of the chunk's."""
+    given) handed over as the complex tensor itself (`chain_tail_am_c`)
+    and written chain-major, as the chain's tail tier runs it. With yT, a
+    (re, im) pair of contiguous time-major planes [nf, C]: read as they
+    lie and written time-major with the power row, as the time-major
+    wideband tier runs it. tile: the tail tile (the peak segment) in place
+    of the chunk's."""
     from supersdr_tpu_torch.ops.cuda import chain_tail as ct
     from supersdr_tpu_torch.runtime import chain
     ccfg = chain.ChainConfig(mode=mode, chunk=nf, os_block=nf,
@@ -565,15 +572,16 @@ def _am_case(C: int, nf: int, gen, *, device, mode: str = "AM",
                          dtype=torch.complex64) * 0.05)
     st = chain._state_rows(ccfg, chain.init_state(ccfg, (C,), device=device))
     planes = (y.real.T, y.imag.T) if yT is None else tuple(yT)
-    args = (*planes, st, chain._tail_params_vec(params, ccfg),
-            params.P_interp)
+    rest = (st, chain._tail_params_vec(params, ccfg), params.P_interp)
     kw = dict(tile_t=tile or chain._tail_tile(nf, n_taps),
               demod=chain._tail_demod(ccfg),
               accum_pow=accum or yT is not None,
-              hang_window=chain._tail_hang_window(ccfg),
-              audio_layout="chan" if yT is None else "time")
-    return (lambda: ct.chain_tail_am(*args, **kw),
-            lambda: ct.chain_tail_am_plain(*args, **kw))
+              hang_window=chain._tail_hang_window(ccfg))
+    lay = dict(audio_layout="chan" if yT is None else "time")
+    plain = (lambda: ct.chain_tail_am_plain(*planes, *rest, **kw, **lay))
+    if yT is None:
+        return lambda: ct.chain_tail_am_c(y, *rest, **kw), plain
+    return lambda: ct.chain_tail_am(*planes, *rest, **kw, **lay), plain
 
 
 def _compare(name: str, label: str, kernel, plain, tol: float, device,
@@ -704,9 +712,17 @@ def phase_kernels(shape: dict, device, err: dict, seed: int = 7) -> None:
                           nf=640))):
         kw = dict(kw)
         n = kw.pop("nf", nf)
-        _compare("chain_tail_am", f"{label} nf={n}",
+        _compare("chain_tail_am_c", f"{label} nf={n}",
                  *_am_case(C, n, gen, device=device, **kw),
                  TOL_SNR_DB["tail"], device, err)
+    # channel counts that leave the last block of 2 channels (and of 8)
+    # ragged
+    for label, kw, n_ch in (("AM hang 40 ms", dict(hang_ms=40.0), C - 13),
+                            ("USB", dict(mode="USB"), C - 12)):
+        _compare("chain_tail_am_c", f"{label} nf={nf}, {n_ch} channels",
+                 *_am_case(n_ch, nf, gen, device=device, **kw),
+                 TOL_SNR_DB["tail"], device, err)
+    _am_refusals(C, nf, gen, device)
     # time-major audio launches clusters of four blocks: also a channel
     # count that leaves the last block ragged and the last cluster short
     for label, kw, n_ch in (("AM", {}, C),
@@ -721,6 +737,35 @@ def phase_kernels(shape: dict, device, err: dict, seed: int = 7) -> None:
                  TOL_SNR_DB["tail"], device, err)
 
 
+def _am_refusals(C: int, nf: int, gen, device) -> None:
+    """On the card the non-FIR wrappers refuse what their kernels do not
+    read or write: rows at an odd element offset (not 16-byte aligned) for
+    the complex entry, chain-major audio for the planes' entry."""
+    from supersdr_tpu_torch.ops.cuda import chain_tail as ct
+    y = torch.randn(C, nf + 1, generator=gen, device=device,
+                    dtype=torch.complex64) * 0.05
+    kernel, _ = _am_case(C, nf, gen, device=device, y=y[:, 1:])
+    planes = (y.real.T[:nf], y.imag.T[:nf])
+    st = torch.zeros(4 + 9, C, device=device)
+    par = torch.zeros(9, device=device)
+    P = torch.zeros(9, 4, device=device)
+    calls = {"odd offset": kernel,
+             "chain-major audio": lambda: ct.chain_tail_am(
+                 *planes, st, par, P, tile_t=nf, demod="am",
+                 audio_layout="chan")}
+    for label, call in calls.items():
+        before = (ct.chain_tail_am.launches, ct.chain_tail_am_c.launches)
+        try:
+            call()
+        except ValueError as e:
+            print(f"kernel chain_tail_am refuses {label}: {e}", flush=True)
+        else:
+            raise AssertionError(f"chain_tail_am took {label}")
+        if (ct.chain_tail_am.launches, ct.chain_tail_am_c.launches) \
+                != before:
+            raise AssertionError(f"chain_tail_am launched on {label}")
+
+
 def _wrappers() -> dict:
     """Each kernel's wrapper by its name in the JSON summary."""
     from supersdr_tpu_torch.ops.cuda import chain_tail as ct
@@ -729,7 +774,8 @@ def _wrappers() -> dict:
     from supersdr_tpu_torch.ops.cuda import pfb_fold as pf
     return {"channelize_fused": cf.channelize_fused_raw3,
             "chain_tail": ct.chain_tail_fir, "pfb_fold": pf.pfb_fold,
-            "chain_tail_am": ct.chain_tail_am, "halo": halo.left_halo}
+            "chain_tail_am": ct.chain_tail_am,
+            "chain_tail_am_c": ct.chain_tail_am_c, "halo": halo.left_halo}
 
 
 def _reset_counts() -> None:
@@ -787,7 +833,8 @@ def phase_main_path(shape: dict, device, seed: int = 1) -> dict:
                     or not finite or min(mean_abs) <= 0:
                 raise AssertionError(f"main path {prof} {kind} failed")
     launches = _counts()
-    if launches["pfb_fold"] or launches["chain_tail_am"] or launches["halo"]:
+    if launches["pfb_fold"] or launches["chain_tail_am"] \
+            or launches["chain_tail_am_c"] or launches["halo"]:
         raise AssertionError(f"planar main path ran another tier: {launches}")
     return {"launches": launches, "runs": runs}
 
@@ -885,7 +932,7 @@ def phase_chanmajor(shape: dict, device, seed: int = 2) -> dict:
           f"{len(chunks)} chunks; audio {tuple(outs[0].shape)} "
           f"finite={finite} mean|a|={mean_abs}", flush=True)
     want = {"channelize_fused": 0, "chain_tail": 0, "pfb_fold": len(chunks),
-            "chain_tail_am": len(chunks), "halo": 0}
+            "chain_tail_am": 0, "chain_tail_am_c": len(chunks), "halo": 0}
     if launches != want or not shape_ok or not finite or min(mean_abs) <= 0:
         raise AssertionError("chan-major main path failed")
     return {"launches": launches, "cfg": cfg, "params": params,
@@ -921,12 +968,13 @@ def phase_chanmajor_timing(run: dict, err: dict, iters: int = 5,
     y = torch.complex(out.baseband.re, out.baseband.im)       # [C, nf]
     kernel, plain = _am_case(cfg.n_chan, cfg.chunk_per_chan, gen,
                              device=dev, y=y)
-    _compare("chain_tail_am", f"AM nf={cfg.chunk_per_chan}", kernel, plain,
-             TOL_SNR_DB["tail"], dev, err)
-    times["chain_tail_am"] = (cuda_ms(kernel, iters), cuda_ms(plain, 2))
-    for name in ("pfb_fold", "chain_tail_am"):
+    _compare("chain_tail_am_c", f"AM nf={cfg.chunk_per_chan}", kernel,
+             plain, TOL_SNR_DB["tail"], dev, err)
+    times["chain_tail_am_c"] = (cuda_ms(kernel, iters), cuda_ms(plain, 2))
+    for name in ("pfb_fold", "chain_tail_am_c"):
         print(f"time {name}: kernel {times[name][0]:.3f} ms, "
               f"plain {times[name][1]:.3f} ms", flush=True)
+    _am_launch_info("chanmajor", cfg.n_chan, cfg.chain_cfg, chain_major=True)
     # the other demodulators through the scanned body at this length (NBFM
     # on FM carriers with manual AGC), and AM with the hang
     for label, kw in (("USB", dict(mode="USB", y=y)),
@@ -936,9 +984,9 @@ def phase_chanmajor_timing(run: dict, err: dict, iters: int = 5,
                       ("AM hang 40 ms", dict(hang_ms=40.0, y=y))):
         kernel, plain = _am_case(cfg.n_chan, cfg.chunk_per_chan, gen,
                                  device=dev, **kw)
-        _compare("chain_tail_am", f"{label} nf={cfg.chunk_per_chan}", kernel,
-                 plain, TOL_SNR_DB["tail"], dev, err)
-        print(f"time chain_tail_am {label}: kernel "
+        _compare("chain_tail_am_c", f"{label} nf={cfg.chunk_per_chan}",
+                 kernel, plain, TOL_SNR_DB["tail"], dev, err)
+        print(f"time chain_tail_am_c {label}: kernel "
               f"{cuda_ms(kernel, iters):.3f} ms", flush=True)
     del y, out, kernel, plain
     device_share(f"chanmajor f32 ({len(chunks)} chunks a call)", step,
@@ -1010,7 +1058,8 @@ def phase_controls(shape: dict, device, seed: int = 5) -> None:
               f"chunks; finite={finite}; squelch open share {opened:.3f}",
               flush=True)
         want = {"channelize_fused": len(chunks), "chain_tail": len(chunks),
-                "pfb_fold": 0, "chain_tail_am": 0, "halo": 0}
+                "pfb_fold": 0, "chain_tail_am": 0, "chain_tail_am_c": 0,
+                "halo": 0}
         if launches != want or not finite \
                 or (label == "squelch" and opened != 0.0):
             raise AssertionError(f"planar {label} failed")
@@ -1059,7 +1108,7 @@ def phase_chain(device, seed: int = 6) -> None:
         outs[key] = (out.audio.cpu().numpy(), _counts())
     print(f"chain.process 2560 receivers: launches {outs['card'][1]}",
           flush=True)
-    if outs["card"][1]["chain_tail_am"] != 1:
+    if outs["card"][1]["chain_tail_am_c"] != 1:
         raise AssertionError("chain.process did not run the tail kernel")
     _close_to_cpu("chain.process 2560 receivers", outs["card"][0],
                   outs["cpu"][0], tol)
@@ -1084,10 +1133,72 @@ def phase_chain(device, seed: int = 6) -> None:
         res[key] = (out.audio.cpu().numpy(), _counts())
     print(f"chan-major mxu2fused MID: launches {res['card'][1]}", flush=True)
     if res["card"][1]["channelize_fused"] != 1 \
-            or res["card"][1]["chain_tail_am"] != 1:
+            or res["card"][1]["chain_tail_am_c"] != 1:
         raise AssertionError("chan-major mxu2fused missed a kernel")
     _close_to_cpu("chan-major mxu2fused MID", res["card"][0],
                   res["cpu"][0], tol)
+
+
+def _am_launch_info(label: str, C: int, ccfg, chain_major: bool) -> None:
+    """What a non-FIR entry (chain_major: `chain_tail_am_c`, else
+    `chain_tail_am`) launches at these shapes: shared bytes a block,
+    blocks, threads, and the blocks an SM holds (occupancy API)."""
+    import ctypes
+    from supersdr_tpu_torch import _build
+    from supersdr_tpu_torch.ops.cuda import chain_tail as ct
+    from supersdr_tpu_torch.runtime import chain
+    lib = _build.load()
+    tile = chain._tail_tile(ccfg.chunk, ccfg.n_taps)
+    hang = ct.hang_tiles_for(chain._tail_hang_window(ccfg), tile)
+    out = (ctypes.c_long * 4)()
+    _build.check(lib.chain_tail_am_launch(
+        int(chain_major), C, ccfg.interp_plan.per, ccfg.upsample, tile, hang,
+        ctypes.cast(out, ctypes.c_void_p)), "chain_tail_am_launch")
+    name = "chain_tail_am_c" if chain_major else "chain_tail_am"
+    print(f"launch {name} {label}: {out[0]} bytes shared a block, {out[1]} "
+          f"blocks of {out[2]} threads, {out[3]} blocks an SM ({C} channels, "
+          f"seg {tile}, {hang} hang slots)", flush=True)
+
+
+def phase_am_batch(device, err: dict, iters: int = 20,
+                   seed: int = 16) -> dict:
+    """The non-FIR tail as `chain.process` runs it on a batch of receivers
+    (the chain's default chunk of 2048, 128 and 2560 receivers): the
+    kernel against its plain version, its time, the grid, and
+    `chain.process` ms a call (one tail launch each)."""
+    from supersdr_tpu_torch.runtime import chain
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ccfg = chain.ChainConfig(tail_impl="pallas")
+    times = {}
+    for n_rx in (128, 2560):
+        y = torch.randn(n_rx, ccfg.chunk, generator=gen, device=device,
+                        dtype=torch.complex64) * 0.05
+        kernel, plain = _am_case(n_rx, ccfg.chunk, gen, device=device, y=y,
+                                 n_taps=ccfg.n_taps)
+        _compare("chain_tail_am_c", f"batch {n_rx} x {ccfg.chunk}", kernel,
+                 plain, TOL_SNR_DB["tail"], device, err)
+        k_ms = cuda_ms_queued(kernel, iters, device)
+        p = chain.make_params(ccfg, device=device)
+        st = [chain.init_state(ccfg, (n_rx,), device=device)]
+        iq = torch.randn(n_rx, ccfg.chunk, generator=gen, device=device,
+                         dtype=torch.complex64) * 0.1
+
+        def step():
+            st[0], out = chain.process(ccfg, p, st[0], iq)
+            return out.audio
+        _reset_counts()
+        step()
+        _sync(device)
+        if _counts()["chain_tail_am_c"] != 1:
+            raise AssertionError("chain.process did not run the tail kernel")
+        c_ms = cuda_ms(step, 5)
+        times[f"chain_tail_am_c_batch{n_rx}"] = (k_ms, cuda_ms(plain, 2))
+        print(f"time chain_tail_am_c batch {n_rx} x {ccfg.chunk}: kernel "
+              f"{k_ms:.4f} ms; chain.process {c_ms:.3f} ms a call",
+              flush=True)
+        _am_launch_info(f"batch {n_rx}", n_rx, ccfg, chain_major=True)
+        del y, iq, st
+    return times
 
 
 def phase_halo(device, err: dict, seed: int = 8) -> None:
@@ -1436,11 +1547,19 @@ def phase_tmajor(device, err: dict, planar_ms: dict, iters: int = 5,
     # the non-FIR tail as this branch launched it (time-major planes, the
     # power row, time-major audio) against its plain version, on the
     # passband the path produced
+    kernel, plain = _am_case(cfg.n_chan, cfg.chunk_per_chan, gen,
+                             device=device,
+                             yT=(out.baseband.re, out.baseband.im),
+                             n_taps=cfg.n_taps)
     _compare("chain_tail_am", f"AM time-major nf={cfg.chunk_per_chan}",
-             *_am_case(cfg.n_chan, cfg.chunk_per_chan, gen, device=device,
-                       yT=(out.baseband.re, out.baseband.im),
-                       n_taps=cfg.n_taps),
-             TOL_SNR_DB["tail"], device, err)
+             kernel, plain, TOL_SNR_DB["tail"], device, err)
+    times["chain_tail_am_time"] = (cuda_ms(kernel, iters), cuda_ms(plain, 2))
+    print(f"time chain_tail_am time-major 33 taps: kernel "
+          f"{times['chain_tail_am_time'][0]:.3f} ms, plain "
+          f"{times['chain_tail_am_time'][1]:.3f} ms", flush=True)
+    _am_launch_info("tmajor 33 taps", cfg.n_chan, cfg.chain_cfg,
+                    chain_major=False)
+    del kernel, plain
     ccfg = wb.WidebandConfig(**dict(HEADLINE, n_taps=33),
                              **dict(wb.PROFILES["quality"],
                                     time_major=False))
@@ -1644,7 +1763,7 @@ def phase_mesh_tiers(device, seed: int = 13) -> dict:
         ("tmajor 33 taps", dict(MID, n_taps=33, **wb.PROFILES["quality"]),
          None, {"channelize_fused": 1, "chain_tail_am": 1, "halo": 1}),
         ("fallback", dict(MID, **CHANMAJOR), None,
-         {"pfb_fold": 1, "chain_tail_am": 1, "halo": 1}))
+         {"pfb_fold": 1, "chain_tail_am_c": 1, "halo": 1}))
     for label, kw, wmax, per_chunk in cases:
         cfg = wb.WidebandConfig(**kw)
         chunks = [((rng.normal(size=cfg.chunk_in)
@@ -1712,7 +1831,7 @@ def phase_mesh_parts(device, seed: int = 14) -> None:
     print(f"pipeline 2 stages, 2 MID microbatches: audio "
           f"{tuple(audio.shape)}, launches {launches}, vs serial snr "
           f"{snr:.2f} dB (tol {TOL_SNR_DB['cpu']} dB)", flush=True)
-    if launches["chain_tail_am"] != 2 or not snr >= TOL_SNR_DB["cpu"]:
+    if launches["chain_tail_am_c"] != 2 or not snr >= TOL_SNR_DB["cpu"]:
         raise AssertionError("pipeline disagrees with the serial wideband")
     print(dryrun.dryrun_multichip(MESH_D, device), flush=True)
 
@@ -2320,15 +2439,19 @@ class _PlainKernels:
         from supersdr_tpu_torch.ops.cuda import chain_tail as ct
         from supersdr_tpu_torch.ops.cuda import channelize_fused as cf
         self._mods = (cf, ct)
-        self._saved = (cf._launch, ct._launch_fir, ct._launch_am)
+        self._saved = (cf._launch, ct._launch_fir, ct._launch_am,
+                       ct._launch_am_c)
         cf._launch = cf.channelize_fused_plain
         ct._launch_fir, ct._launch_am = (ct.chain_tail_plain,
                                          ct.chain_tail_am_plain)
+        ct._launch_am_c = lambda y, *a, **kw: ct.chain_tail_am_plain(
+            y.real.T, y.imag.T, *a, audio_layout="chan", **kw)
         return self
 
     def __exit__(self, *exc):
         cf, ct = self._mods
-        cf._launch, ct._launch_fir, ct._launch_am = self._saved
+        (cf._launch, ct._launch_fir, ct._launch_am,
+         ct._launch_am_c) = self._saved
 
 
 def _carrier_names(cfg) -> list:
@@ -3134,10 +3257,13 @@ def kernel_bounds(halo_bound: tuple) -> dict:
         return bound_ms(
             2 * 2 * n + 2 * 4 * ov * C + (4 + per) * C * 4 * 2 + 4 * n * L,
             {"bf16": n * 4 * cfg.n_taps, "fp32": n * (2 * per * L + 40)})
+    def am(C, n):
+        # complex64 passband in, float32 audio out, the state rows in and
+        # out; the resampler's and the scans' operations in float32
+        return bound_ms(8 * n * C + (4 + per) * C * 4 * 2 + 4 * n * C * L,
+                        {"fp32": n * C * (2 * per * L + 40)})
     n1, n2 = channelizer._pick_factors(M)
     m1, m2, m1_pad = sw.plan_mesh(cfg, MESH_D).factors
-    state = (4 + per) * M * 4 * 2
-    tail_flops = samples * (2 * per * L + 40)   # resampler + the scalar ops
     return {
         "channelize_fused": chan(n1, n2, n1, 1),
         "chain_tail": tail(M),
@@ -3146,8 +3272,13 @@ def kernel_bounds(halo_bound: tuple) -> dict:
         "pfb_fold": bound_ms(
             2 * 4 * (samples + (K - 1) * M) + 4 * K * M + 8 * samples,
             {"fp32": samples * 4 * K}),
-        "chain_tail_am": bound_ms(8 * samples + state + 4 * samples * L,
-                                  {"fp32": tail_flops}),
+        "chain_tail_am_c": am(M, nf),
+        # the 33-tap time-major branch: two float32 planes in, time-major
+        # audio and the power row out (the same bytes)
+        "chain_tail_am": am(M, nf),
+        # chain.process on 128 and 2560 receivers × its chunk of 2048
+        "chain_tail_am_c_batch128": am(128, 2048),
+        "chain_tail_am_c_batch2560": am(2560, 2048),
         "halo": halo_bound,
     }
 
@@ -3208,12 +3339,14 @@ def main() -> int:
     phase_rows(HEADLINE, dev, CHANMAJOR)
     phase_controls(HEADLINE, dev)
     phase_chain(dev)
+    times.update(phase_am_batch(dev, err))
     times.update(phase_halo_timing(dev))
     sharded = phase_sharded(dev)
     with tempfile.TemporaryDirectory() as tmp:
         procs = phase_procs(dev, tmp)
     times.update(procs["times"])
     tmajor = phase_tmajor(dev, err, planar_ms)
+    times.update(tmajor["times"])
     torch.cuda.empty_cache()
     mesh = phase_mesh(dev, err)
     times.update(mesh["times"])
@@ -3252,8 +3385,16 @@ def main() -> int:
                  times["pfb_fold"], bounds["pfb_fold"],
                  library_ms=times["pfb_fold_library"]),
         _summary("chain_tail_am", "chain_tail.cu", "chain_tail.py:304",
-                 paths, err, times["chain_tail_am"],
+                 paths, err, times["chain_tail_am_time"],
                  bounds["chain_tail_am"]),
+        _summary("chain_tail_am_c", "chain_tail.cu", "chain_tail.py:304",
+                 paths, err, times["chain_tail_am_c"],
+                 bounds["chain_tail_am_c"],
+                 **{f"{k}_{v}": x for k in ("batch128", "batch2560")
+                    for v, x in (
+                        ("ms", times[f"chain_tail_am_c_{k}"][0]),
+                        ("plain_ms", times[f"chain_tail_am_c_{k}"][1]),
+                        ("bound_ms", bounds[f"chain_tail_am_c_{k}"][0]))}),
         _summary("halo", "halo.cu", "halo.py:24", paths, err, times["halo"],
                  bounds["halo"], library_ms=times["halo_library"],
                  empty_launch_ms=times["halo_empty"],

@@ -1,12 +1,18 @@
 // Chain tails for Hopper (sm_90a), per channel, one launch a chunk:
-//   chain_tail_fir: passband FIR → RSSI → demod → DC block → AGC → ×L resample
-//   chain_tail_am:  the same tail on an already filtered passband y
+//   chain_tail_fir:  passband FIR → RSSI → demod → DC block → AGC → ×L
+//                    resample
+//   chain_tail_am_c: the same tail on an already filtered complex64
+//                    passband [C, nf], chain-major audio (a warp a channel)
+//   chain_tail_am:   the same on two float32 planes [nf, C] by element
+//                    strides, time-major audio (8-channel blocks)
 //
 // Replaces: supersdr_tpu/ops/pallas/chain_tail.py::_kernel_fir (FIR entry;
 // chain.process_tail_tmajor(fir_x3=…) on the planar wideband path) and
 // ::_kernel (chain_tail_am without `fir`; chain._process_tail_pallas, the
-// chain-major wideband tier and any batch of ≥ 128 receivers), both with
-// _tail_core (and its _atan2, _doubling_linear, _doubling_max helpers).
+// chain-major wideband tier and any batch of ≥ 128 receivers: the
+// chain-major entry; chain.process_tail_tmajor(yT=…): the 8-channel entry),
+// all with _tail_core (and its _atan2, _doubling_linear, _doubling_max
+// helpers).
 //
 // What the tail computes, per channel, with y the passband signal:
 //   pw     = Σ_n |y[n]|²                             (RSSI power row)
@@ -71,10 +77,10 @@
 //    gain law and the exp run in the same registers, so a tile's passband
 //    is read once and its gained audio written once, both conflict-free
 //    (rows are channel-major with one pad word every 32 samples).
-//  * The resampler runs on all threads and writes audio by element strides
-//    (coalesced along the contiguous axis); the non-FIR entry reads y by
-//    element strides too, so a chain-major [C, n] source and a time-major
-//    [n, C] one need no transpose pass. Time-major audio rows are 32 bytes
+//  * The resampler runs on all threads and writes time-major audio by
+//    element strides, 8 channels side by side; the 8-channel non-FIR entry
+//    reads its planes by element strides too, so the time-major [n, C]
+//    planes need no transpose pass. Time-major audio rows are 32 bytes
 //    a block, a quarter of a 128-byte line: when the four blocks of a line
 //    drift a tile or more apart, L2 evicts lines partly written, and the
 //    non-FIR entry with time-major audio took 1.19 ms against 0.81 with
@@ -85,8 +91,43 @@
 //  * The next tile's input rows are copied asynchronously (cp.async) into
 //    the passband rows' space while the resampler runs, which reads
 //    neither: the FIR entry stages raw rows there (16 bytes a row of 8 bf16
-//    channels) and transposes them into the window, the non-FIR entry
-//    copies 4 bytes a sample straight into place.
+//    channels) and transposes them into the window, the 8-channel non-FIR
+//    entry copies 4 bytes a sample straight into place.
+//  * The scans' per-sample arithmetic is what the non-FIR tail spends most
+//    on, and its exact forms cost more than they look: an IEEE division in
+//    the gain law is a call to a slow-path routine, which kept the scan's
+//    carried state in local memory (a 200-240-byte stack frame in every
+//    tail). The gain law multiplies by 1/knee instead, the dB conversions
+//    are log2f / exp2f with the constants folded (20·log10 x = 6.0206·log2
+//    x, 10^(g/20) = 2^(0.16610·g)), and a piece's carried values come from
+//    lane 31 without selects: the chain-major entry 0.75 → 0.51 ms at 2560
+//    channels, the FIR entry 1.24 → 1.08 (H100 80GB HBM3, 700 W).
+//
+// The chain-major non-FIR entry (chain_tail_am_c). Measured at 2560
+// channels × 16128 samples, its bound is 0.296 ms (330 MB of complex64 in,
+// 660 MB of audio out). The 8-channel entry there took 0.80-0.82 ms: scans
+// 0.48, resampler and audio stores 0.31, loads 0.13 and the state, with
+// almost no overlap, since a block's 8 warps scan, then resample, in step.
+// Its design:
+//  * A warp a channel, each on its own. Blocks of 2 warps meet once, after
+//    the tables; then a warp syncs only with itself, so warps scanning and
+//    warps storing interleave on every SM, no block waits for its slowest
+//    channel, and the hardware spreads 1280 blocks over the SMs to within
+//    one block (320 blocks of 8 warps left 56 SMs with 3 and 76 with 2).
+//  * The passband is read as it lies: a channel's 256-sample tile is 2 KB
+//    of contiguous complex64, copied as 16-byte cp.async pieces, lanes
+//    along time (512 bytes an instruction), into a ring of 3 stages a
+//    warp; the copy of the tile two ahead starts before the current one is
+//    scanned. Chunks land XOR-swizzled by 128-byte row, so a lane's four
+//    16-byte loads of its 8 samples are conflict-free; re and im part in
+//    registers. The ring is the warp's alone: its cp.async groups and a
+//    __syncwarp order it, with no block barrier and no mbarrier.
+//  * The resampler takes 4 consecutive input samples a lane, so one P row
+//    broadcast serves 4 samples and the window slides in registers (3
+//    shared loads a sample against 18). Its outputs pass through the ring
+//    slot the tile just left, swizzled, and leave as whole 128-byte lines
+//    an instruction: stored straight from the lanes (128 bytes a lane
+//    apart) the entry took 1.26 ms against 0.75.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -153,7 +194,7 @@ __host__ __device__ inline int row_stride(int n) {
 // lane's 8 consecutive samples, 32 lanes side by side, hit 32 banks.
 __host__ __device__ __forceinline__ int skew(int t) { return t + (t >> 5); }
 
-// What both entries share: the resampler, parameters, state rows and the
+// What the entries share: the resampler, parameters, state rows and the
 // audio destination (element strides per output sample and per channel).
 struct TailArgs {
   const float* P;
@@ -167,15 +208,16 @@ struct TailArgs {
   int C;
   float* audio;
   long a_st, a_sc;
-  int a_tfast;          // 1: audio is contiguous in time (chain-major)
   int cluster;          // 1: launched in clusters of kCluster blocks
 };
 
-// Shared memory after an entry's own area (floats): [per·L] P, [2·kPowN]
-// powers of the DC pole and the attack, [kCB][S] y.re (then the running
-// max), [kCB][S] y.im (then the hang's running max), [kCB][S1] resample
-// segment (H history slots, then the tile), [kCB][nsegs] p_prev − d and
-// [kCB][nsegs] ring max by segment of a piece, [hang_tiles][kCB] hang ring.
+// Shared memory of the 8-channel blocks after an entry's own area
+// (floats): [per·L] P, [2·kPowN] powers of the DC pole and the attack,
+// [kCB][S] y.re, [kCB][S] y.im, [kCB][S1] resample segment (H history
+// slots, then the tile), [kCB][4][nsegs] the segment folds (for each warp:
+// p_prev − d, ring max, and the running peak and hang peak at each
+// segment's end),
+// [hang_tiles][kCB] hang ring.
 struct Layout {
   int S, H, S1, nsegs;
   __host__ __device__ Layout(int per, int T, int seg) {
@@ -187,13 +229,13 @@ struct Layout {
   }
   __host__ __device__ size_t floats(int per, int L, int hang_tiles) const {
     return (size_t)per * L + 2 * kPowN + 2 * (size_t)kCB * S +
-           (size_t)kCB * S1 + 2 * (size_t)kCB * nsegs +
+           (size_t)kCB * S1 + 4 * (size_t)kCB * nsegs +
            (size_t)hang_tiles * kCB;
   }
 };
 
 struct Smem {
-  float *ps, *pows, *ya, *yb, *a1, *pb, *hb, *ring;
+  float *ps, *pows, *ya, *yb, *a1, *pb, *ring;
   Layout lay;
   __device__ Smem(float* base, int per, int L, int T, int seg)
       : lay(per, T, seg) {
@@ -203,8 +245,7 @@ struct Smem {
     yb = ya + kCB * lay.S;
     a1 = yb + kCB * lay.S;
     pb = a1 + kCB * lay.S1;
-    hb = pb + kCB * lay.nsegs;
-    ring = hb + kCB * lay.nsegs;
+    ring = pb + 4 * kCB * lay.nsegs;
   }
 };
 
@@ -217,15 +258,40 @@ struct Carry {
   float pw;               // this lane's share of Σ|y|²
 };
 
-__device__ void tail_init(const TailArgs& a, const Smem& sm, Carry& cr,
-                          int c0) {
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  for (int k = tid; k < a.per * a.L; k += kThreads) sm.ps[k] = a.P[k];
-  for (int k = tid; k < a.hang_tiles * kCB; k += kThreads)
-    sm.ring[k] = kNegBig;
-  if (tid < 2) {  // powers of the DC pole (params[0]) and the attack ([7])
+// One warp's rows for the scans.
+struct ScanRows {
+  const float* y;   // the tile's passband: planar, re at y[skew(t)] and im
+                    // at y[ys + skew(t)]; or (ys < 0) interleaved complex
+                    // chunks at il_chunk positions
+  int ys;
+  float* out;       // resample segment: tile sample t at out[skew(H + t)]
+  int H;
+  float *pb, *hb, *pe, *me;  // [nsegs] each
+  float* ring;      // hang slot k at ring[k·ring_st]
+  int ring_st;
+};
+
+__device__ inline ScanRows block_rows(const Smem& sm, int w) {
+  const int n = sm.lay.nsegs;
+  float* pb = sm.pb + 4 * w * n;
+  return ScanRows{sm.ya + w * sm.lay.S, kCB * sm.lay.S, sm.a1 + w * sm.lay.S1,
+                  sm.lay.H, pb, pb + n, pb + 2 * n, pb + 3 * n, sm.ring + w,
+                  kCB};
+}
+
+// Position (in 16-byte chunks) of chunk q — samples 2q, 2q + 1 of a tile
+// of interleaved complex64 — in a stage: chunk q ^ row within each row of
+// 8 chunks (128 bytes), so the 8 lanes of a 16-byte load phase, each
+// reading the k-th of its 4 chunks, hit 8 different bank groups.
+__device__ __forceinline__ int il_chunk(int q) { return q ^ ((q >> 3) & 7); }
+
+// P and the powers of the DC pole (params[0]) and the attack ([7]).
+__device__ void load_tables(const TailArgs& a, float* ps, float* pows,
+                            int tid, int nthr) {
+  for (int k = tid; k < a.per * a.L; k += nthr) ps[k] = a.P[k];
+  if (tid < 2) {
     const float r = a.params[tid == 0 ? 0 : 7];
-    float* pw = sm.pows + tid * kPowN;
+    float* pw = pows + tid * kPowN;
     float v = r;
     for (int i = 0; i < 8; ++i) {
       pw[i] = v;
@@ -233,10 +299,13 @@ __device__ void tail_init(const TailArgs& a, const Smem& sm, Carry& cr,
     }
     for (int i = 8; i < kPowN; ++i) pw[i] = pw[i - 1] * pw[i - 1];
   }
+}
+
+// Channel sc's carried state into cr, its resample history into `out`.
+__device__ void load_carry(const TailArgs& a, Carry& cr, float* out, int H,
+                           int sc, int lane) {
   cr = Carry{0.f, 0.f, 0.f, 0.f, 0.f, kNegBig, kNegBig, kNegBig, 0.f, 0, 0.f};
-  const int sc = c0 + w;
   const long C = a.C;
-  float* a1c = sm.a1 + w * sm.lay.S1;
   if (sc < a.C) {
     cr.s0 = a.st_in[sc];
     cr.s1 = a.st_in[C + sc];
@@ -244,8 +313,18 @@ __device__ void tail_init(const TailArgs& a, const Smem& sm, Carry& cr,
     cr.g = a.st_in[3 * C + sc];
   }
   for (int m = lane; m < a.per - 1; m += 32)
-    a1c[skew(sm.lay.H - (a.per - 1) + m)] =
+    out[skew(H - (a.per - 1) + m)] =
         sc < a.C ? a.st_in[(4 + m) * C + sc] : 0.f;
+}
+
+__device__ void tail_init(const TailArgs& a, const Smem& sm, Carry& cr,
+                          int c0) {
+  const int tid = threadIdx.x;
+  load_tables(a, sm.ps, sm.pows, tid, kThreads);
+  for (int k = tid; k < a.hang_tiles * kCB; k += kThreads)
+    sm.ring[k] = kNegBig;
+  const int w = tid >> 5;
+  load_carry(a, cr, sm.a1 + w * sm.lay.S1, sm.lay.H, c0 + w, tid & 31);
 }
 
 // The last per−1 resample-segment samples of the previous tile become this
@@ -260,8 +339,10 @@ __device__ void shift_history(const TailArgs& a, const Smem& sm,
   }
 }
 
-// v[pos % 8] of lane pos / 8, in every lane.
+// v[pos % 8] of lane pos / 8, in every lane (pos: the same in every
+// lane; a whole piece's last sample without the selects).
 __device__ __forceinline__ float pick(const float (&v)[kRT], int pos) {
+  if (pos == kTile - 1) return __shfl_sync(kFull, v[kRT - 1], 31);
   float x = v[0];
 #pragma unroll
   for (int i = 1; i < kRT; ++i) x = (pos & 7) == i ? v[i] : x;
@@ -334,50 +415,81 @@ __device__ __forceinline__ void scan_segmax(float (&v)[kRT], float init,
   }
 }
 
-// demod → DC → AGC (+hang) → gain on one tile whose passband rows are in
-// sm.ya / sm.yb (channel-major, skewed): warp w scans channel w in pieces
-// of 256 samples and leaves the gained audio in the resample segment.
-// t0: the tile's first sample in the chunk (segments count from the chunk's
-// start).
+// v at each segment end of the piece into dst[k], k the segment's index
+// from the piece's first (j0, k0: this lane's first sample's index within
+// its segment and its segment's index).
+__device__ __forceinline__ void store_ends(float* dst, const float (&v)[kRT],
+                                           int j0, int k0, int seg,
+                                           int nvalid) {
+  int j = j0, k = k0;
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    if (j + 1 == seg) {
+      if (i < nvalid) dst[k] = v[i];
+      j = 0;
+      ++k;
+    } else {
+      ++j;
+    }
+  }
+}
+
+// demod → DC → AGC (+hang) → gain on one tile: warp w scans its channel's
+// passband rows in pieces of 256 samples and leaves the gained audio in
+// its resample segment. t0: the tile's first sample in the chunk (segments
+// count from the chunk's start).
 template <int kDemod>
-__device__ void tail_scan(const TailArgs& a, const Smem& sm, Carry& cr,
-                          int t0, int tlen, int accum_pow) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+__device__ void tail_scan(const TailArgs& a, const float* pows,
+                          const ScanRows& rw, Carry& cr, int t0, int tlen,
+                          int accum_pow) {
+  const int lane = threadIdx.x & 31;
   const float* par = a.params;
   const float r_dc = par[0], d = par[1], thresh = par[2], slope = par[3];
   const float target = par[4], man_gain = par[5], agc_on = par[6];
   const float attack = par[7], hang_on = par[8];
   const float max_gain = target - thresh;
-  const float knee = fmaxf(-thresh, 1e-6f);
+  const float inv_knee = 1.f / fmaxf(-thresh, 1e-6f);
   const int seg = a.seg;
   const bool hang = a.hang_tiles > 0;
-  float* yr_row = sm.ya + w * sm.lay.S;
-  float* yi_row = sm.yb + w * sm.lay.S;
-  float* out_row = sm.a1 + w * sm.lay.S1;
-  float* pb = sm.pb + w * sm.lay.nsegs;
-  float* hb = sm.hb + w * sm.lay.nsegs;
-  float* ring = sm.ring + w;  // slot k at ring[k·kCB]
-  const float* pw_dc = sm.pows;
-  const float* pw_at = sm.pows + kPowN;
+  const float* pw_dc = pows;
+  const float* pw_at = pows + kPowN;
 
   for (int s0 = 0; s0 < tlen; s0 += kTile) {
     const int cnt = min(kTile, tlen - s0);  // valid samples in the piece
     const int last = cnt - 1;
     const int tt = s0 + lane * kRT;         // this lane's first sample
-    const int sk = tt + (tt >> 5);          // its skewed position
     const int nvalid = min(kRT, max(0, cnt - lane * kRT));
     const int n0 = t0 + s0;                 // the piece's first sample
     const int q0 = n0 / seg;
     const int j0 = (n0 + lane * kRT) % seg;
+    const int k0 = (n0 + lane * kRT) / seg - q0;
     const bool fresh = n0 % seg == 0;       // the piece opens a segment
 
     float u[kRT];
     {  // ---- demod: AM envelope + DC block, SSB real part, NBFM angle
       float yr[kRT], yi[kRT];
+      if (rw.ys < 0) {  // interleaved: 4 chunks of 2 samples a lane
+        const float4* st = reinterpret_cast<const float4*>(rw.y);
 #pragma unroll
-      for (int i = 0; i < kRT; ++i) {
-        yr[i] = i < nvalid ? yr_row[sk + i] : 0.f;
-        yi[i] = i < nvalid ? yi_row[sk + i] : 0.f;
+        for (int k = 0; k < kRT / 2; ++k) {
+          const float4 v = st[il_chunk(tt / 2 + k)];
+          yr[2 * k] = v.x;
+          yi[2 * k] = v.y;
+          yr[2 * k + 1] = v.z;
+          yi[2 * k + 1] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < kRT; ++i) {
+          yr[i] = i < nvalid ? yr[i] : 0.f;
+          yi[i] = i < nvalid ? yi[i] : 0.f;
+        }
+      } else {
+        const int sk = tt + (tt >> 5);
+#pragma unroll
+        for (int i = 0; i < kRT; ++i) {
+          yr[i] = i < nvalid ? rw.y[sk + i] : 0.f;
+          yi[i] = i < nvalid ? rw.y[rw.ys + sk + i] : 0.f;
+        }
       }
       if (accum_pow) {
 #pragma unroll
@@ -422,14 +534,15 @@ __device__ void tail_scan(const TailArgs& a, const Smem& sm, Carry& cr,
       }
     }
 
-    // ---- peak tracker: cm = running max of e + j·d within the segment
+    // ---- peak tracker: cm = running max of e + j·d within the segment;
+    // 20·log10 x = 20·log10(2)·log2 x
     float p[kRT];
     {
       int j = j0;
 #pragma unroll
       for (int i = 0; i < kRT; ++i) {
         const float e =
-            8.685889638065035f * logf(fmaxf(fabsf(u[i]), 1e-9f));
+            6.020599913279624f * log2f(fmaxf(fabsf(u[i]), 1e-9f));
         p[i] = i < nvalid ? e + (float)j * d : kNegBig;
         j = j + 1 == seg ? 0 : j + 1;
       }
@@ -437,28 +550,25 @@ __device__ void tail_scan(const TailArgs& a, const Smem& sm, Carry& cr,
     scan_segmax(p, fresh ? kNegBig : cr.cm, j0, seg, lane);
     cr.cm = pick(p, last);
     // p_prev − d of every segment of the piece, folded over its segment
-    // ends by one lane
-#pragma unroll
-    for (int i = 0; i < kRT; ++i)
-      if (i < nvalid) yr_row[sk + i] = p[i];
+    // ends by one lane, from p at the ends
+    store_ends(rw.pe, p, j0, k0, seg, nvalid);
     __syncwarp();
     if (lane == 0) {
       float pbk = fresh ? cr.peak - d : cr.pbase;
-      pb[0] = pbk;
+      rw.pb[0] = pbk;
       for (int k = 0;; ++k) {
         const long end = (long)(q0 + k + 1) * seg - 1 - n0;
         if (end >= cnt) break;
-        const int e = s0 + (int)end;
-        pbk = fmaxf(yr_row[skew(e)], pbk) - (float)(seg - 1) * d - d;
-        pb[k + 1] = pbk;
+        pbk = fmaxf(rw.pe[k], pbk) - (float)(seg - 1) * d - d;
+        rw.pb[k + 1] = pbk;
       }
     }
     __syncwarp();
     {
-      int j = j0, k = (n0 + lane * kRT) / seg - q0;
+      int j = j0, k = k0;
 #pragma unroll
       for (int i = 0; i < kRT; ++i) {
-        if (i < nvalid) p[i] = fmaxf(p[i], pb[k]) - (float)j * d;
+        if (i < nvalid) p[i] = fmaxf(p[i], rw.pb[k]) - (float)j * d;
         if (j + 1 == seg) {
           j = 0;
           ++k;
@@ -469,7 +579,7 @@ __device__ void tail_scan(const TailArgs& a, const Smem& sm, Carry& cr,
     }
     const int k_last = (n0 + last) / seg - q0;
     cr.peak = pick(p, last);
-    cr.pbase = pb[k_last];
+    cr.pbase = rw.pb[k_last];
 
     // ---- hang: held = max(running raw peak of the segment, ring max)
     float used[kRT];
@@ -481,9 +591,7 @@ __device__ void tail_scan(const TailArgs& a, const Smem& sm, Carry& cr,
       for (int i = 0; i < kRT; ++i) m1[i] = i < nvalid ? p[i] : kNegBig;
       scan_segmax(m1, fresh ? kNegBig : cr.m1, j0, seg, lane);
       cr.m1 = pick(m1, last);
-#pragma unroll
-      for (int i = 0; i < kRT; ++i)
-        if (i < nvalid) yi_row[sk + i] = m1[i];
+      store_ends(rw.me, m1, j0, k0, seg, nvalid);
       __syncwarp();
       int head = cr.head;
       if (lane == 0) {
@@ -491,28 +599,28 @@ __device__ void tail_scan(const TailArgs& a, const Smem& sm, Carry& cr,
         if (fresh) {
           h = kNegBig;
           for (int q = 0; q < a.hang_tiles; ++q)
-            h = fmaxf(h, ring[q * kCB]);
+            h = fmaxf(h, rw.ring[q * rw.ring_st]);
         }
-        hb[0] = h;
+        rw.hb[0] = h;
         for (int k = 0;; ++k) {
           const long end = (long)(q0 + k + 1) * seg - 1 - n0;
           if (end >= cnt) break;
-          ring[head * kCB] = yi_row[skew(s0 + (int)end)];
+          rw.ring[head * rw.ring_st] = rw.me[k];
           head = head + 1 == a.hang_tiles ? 0 : head + 1;
           h = kNegBig;
           for (int q = 0; q < a.hang_tiles; ++q)
-            h = fmaxf(h, ring[q * kCB]);
-          hb[k + 1] = h;
+            h = fmaxf(h, rw.ring[q * rw.ring_st]);
+          rw.hb[k + 1] = h;
         }
       }
       cr.head = __shfl_sync(kFull, head, 0);
       __syncwarp();
       float held[kRT];
       {
-        int j = j0, k = (n0 + lane * kRT) / seg - q0;
+        int j = j0, k = k0;
 #pragma unroll
         for (int i = 0; i < kRT; ++i) {
-          held[i] = i < nvalid ? fmaxf(m1[i], hb[k]) : kNegBig;
+          held[i] = i < nvalid ? fmaxf(m1[i], rw.hb[k]) : kNegBig;
           if (j + 1 == seg) {
             j = 0;
             ++k;
@@ -521,7 +629,7 @@ __device__ void tail_scan(const TailArgs& a, const Smem& sm, Carry& cr,
           }
         }
       }
-      cr.hist = hb[k_last];
+      cr.hist = rw.hb[k_last];
       cr.held = pick(held, last);
       if (hang_on > 0.f) {
 #pragma unroll
@@ -529,14 +637,15 @@ __device__ void tail_scan(const TailArgs& a, const Smem& sm, Carry& cr,
       }
     }
 
-    // ---- gain law, attack, gain
+    // ---- gain law, attack, gain: 10^(g/20) = 2^(log2(10)/20·g)
     float g[kRT];
 #pragma unroll
     for (int i = 0; i < kRT; ++i) {
       const float pu = used[i];
       float gain_db;
       if (agc_on > 0.f) {
-        const float above = (target - pu) + slope * ((pu - thresh) / knee);
+        const float above =
+            (target - pu) + slope * ((pu - thresh) * inv_knee);
         gain_db = pu <= thresh ? max_gain : above;
       } else {
         gain_db = man_gain - 50.f;
@@ -545,12 +654,12 @@ __device__ void tail_scan(const TailArgs& a, const Smem& sm, Carry& cr,
     }
     scan_linear(g, cr.g, pw_at, lane);
     cr.g = pick(g, last);
-    const int ho = sm.lay.H + tt;
+    const int ho = rw.H + tt;
     const int so = ho + (ho >> 5);
 #pragma unroll
     for (int i = 0; i < kRT; ++i)
       if (i < nvalid)
-        out_row[so + i] = u[i] * expf(0.11512925464970229f * g[i]);
+        rw.out[so + i] = u[i] * exp2f(0.16609640474436813f * g[i]);
   }
 }
 
@@ -565,10 +674,9 @@ __device__ void tail_resample(const TailArgs& a, const Smem& sm, int c0,
   const int tid = threadIdx.x;
   const int L = kL ? kL : a.L;
   const int hoff = sm.lay.H - (a.per - 1);
-  // chain-major audio: a warp a channel, lanes along time (coalesced in
-  // time); time-major audio: 8 channels side by side (32-byte rows)
-  const int c = a.a_tfast ? tid >> 5 : tid & (kCB - 1);
-  const int n_first = a.a_tfast ? tid & 31 : tid >> 3;
+  // time-major audio: 8 channels side by side (32-byte rows)
+  const int c = tid & (kCB - 1);
+  const int n_first = tid >> 3;
   if (c0 + c >= a.C) return;
   const float* a1c = sm.a1 + c * sm.lay.S1;
   float* dst = a.audio + (long)(c0 + c) * a.a_sc;
@@ -593,13 +701,8 @@ __device__ void tail_resample(const TailArgs& a, const Smem& sm, int c0,
         for (int q = 0; q < kL; ++q)
           acc[q] += (a.rs_bf16 ? bf16_round(pm[q]) : pm[q]) * v;
       }
-      if (kL == 4 && a.a_st == 1 && (a.a_sc & 3) == 0) {  // 16-byte aligned
-        *reinterpret_cast<float4*>(dst + o) =
-            make_float4(acc[0], acc[1], acc[2], acc[3]);
-      } else {
 #pragma unroll
-        for (int q = 0; q < kL; ++q) dst[(o + q) * a.a_st] = acc[q];
-      }
+      for (int q = 0; q < kL; ++q) dst[(o + q) * a.a_st] = acc[q];
     } else {
       for (int q = 0; q < L; ++q) {
         float acc = 0.f;
@@ -627,20 +730,18 @@ __device__ __forceinline__ void tail_resample_any(const TailArgs& a,
     tail_resample<0>(a, sm, c0, t0, tlen);
 }
 
-// Σ|y|² per channel from the lanes' shares, then the state rows out.
-__device__ void tail_finish(const TailArgs& a, const Smem& sm, Carry& cr,
-                            int c0, int tlen_prev, int accum_pow) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+// Σ|y|² of channel sc from its lanes' shares, then its state rows out.
+__device__ void finish_channel(const TailArgs& a, const Carry& cr,
+                               const float* out, int H, int sc,
+                               int tlen_prev, int accum_pow) {
+  const int lane = threadIdx.x & 31;
   float sum = cr.pw;
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1) sum += __shfl_xor_sync(kFull, sum, s);
-  const int sc = c0 + w;
   if (sc >= a.C) return;
   const long C = a.C;
-  const float* a1c = sm.a1 + w * sm.lay.S1;
   for (int m = lane; m < a.per - 1; m += 32)
-    a.st_out[(4 + m) * C + sc] =
-        a1c[skew(sm.lay.H + tlen_prev - (a.per - 1) + m)];
+    a.st_out[(4 + m) * C + sc] = out[skew(H + tlen_prev - (a.per - 1) + m)];
   if (lane == 0) {
     a.st_out[sc] = cr.s0;
     a.st_out[C + sc] = cr.s1;
@@ -649,6 +750,13 @@ __device__ void tail_finish(const TailArgs& a, const Smem& sm, Carry& cr,
     a.st_out[3 * C + sc] = cr.g;
     a.st_out[(4 + a.per - 1) * C + sc] = accum_pow ? sum : 0.f;
   }
+}
+
+__device__ void tail_finish(const TailArgs& a, const Smem& sm, Carry& cr,
+                            int c0, int tlen_prev, int accum_pow) {
+  const int w = threadIdx.x >> 5;
+  finish_channel(a, cr, sm.a1 + w * sm.lay.S1, sm.lay.H, c0 + w, tlen_prev,
+                 accum_pow);
 }
 
 // D (16×8, f32) += A (16×16, bf16, row) · B (16×8, bf16, col)
@@ -910,7 +1018,8 @@ chain_tail_fir_kernel(const void* __restrict__ x_re,
     __syncthreads();
     fir_mma<kCplx, !kFirBf16>(G, win, fl, sm, T);
     __syncthreads();
-    tail_scan<kDemod>(a, sm, cr, t0, tlen, 1);
+    tail_scan<kDemod>(a, sm.pows, block_rows(sm, tid >> 5), cr, t0, tlen,
+                      1);
     __syncthreads();
     if (t0 + T < nf)
       prefetch_rows(stage, x_re, x_im, x_bf16 != 0, plane, n2, col0, t0 + T,
@@ -926,7 +1035,7 @@ template <int kDemod>
 __global__ void __launch_bounds__(kThreads, 3)
 chain_tail_am_kernel(const float* __restrict__ y_re,
                      const float* __restrict__ y_im, long y_st, long y_sc,
-                     int y_tfast, int nf, int accum_pow, TailArgs a) {
+                     int nf, int accum_pow, TailArgs a) {
   extern __shared__ float4 smem_f4[];
   const Smem sm(reinterpret_cast<float*>(smem_f4), a.per, a.L, kTile, a.seg);
   const int tid = threadIdx.x;
@@ -934,15 +1043,14 @@ chain_tail_am_kernel(const float* __restrict__ y_re,
   Carry cr;
   tail_init(a, sm, cr, c0);
   // The tile of y at t0 into the passband rows, by 4-byte asynchronous
-  // copies, read along whichever axis is contiguous: a warp a channel with
-  // lanes along time, or 8 channels side by side. The rows are free from
-  // the end of a tile's scans, so the next tile arrives under the resampler.
+  // copies, 8 channels side by side. The rows are free from the end of a
+  // tile's scans, so the next tile arrives under the resampler.
   auto prefetch = [&](int t0) {
     const int tlen = min(kTile, nf - t0);
-    const int c = y_tfast ? tid >> 5 : tid & (kCB - 1);
+    const int c = tid & (kCB - 1);
     const bool on = c0 + c < a.C;
     const long base = on ? (long)(c0 + c) * y_sc : 0;
-    for (int row = y_tfast ? tid & 31 : tid >> 3; row < tlen; row += 32) {
+    for (int row = tid >> 3; row < tlen; row += 32) {
       const long idx = on ? (long)(t0 + row) * y_st + base : 0;
       const int at = c * sm.lay.S + skew(row);
       cp_async<4>(sm.ya + at, y_re + idx, on ? 4 : 0);
@@ -958,7 +1066,8 @@ chain_tail_am_kernel(const float* __restrict__ y_re,
     if (t0 > 0) shift_history(a, sm, tlen_prev);
     cp_async_wait_all();
     __syncthreads();
-    tail_scan<kDemod>(a, sm, cr, t0, tlen, accum_pow);
+    tail_scan<kDemod>(a, sm.pows, block_rows(sm, tid >> 5), cr, t0, tlen,
+                      accum_pow);
     __syncthreads();
     if (a.cluster) cluster_sync();  // the line's four blocks store together
     if (t0 + kTile < nf) prefetch(t0 + kTile);
@@ -969,19 +1078,192 @@ chain_tail_am_kernel(const float* __restrict__ y_re,
   tail_finish(a, sm, cr, c0, tlen_prev, accum_pow);
 }
 
+// ---- The chain-major entry: a complex64 passband [C, nf] (contiguous in
+// time, rows 16-byte aligned) to chain-major audio [C, nf·L].
+constexpr int kAmWarps = 2;             // channels (warps) a block
+constexpr int kStages = 3;              // input tiles a warp holds
+constexpr int kStageFloats = 2 * kTile;  // 256 interleaved complex samples
+constexpr int kRS = 4;                  // input samples a lane resamples
+
+// Shared memory of the chain-major entry (floats): [per·L] P and [2·kPowN]
+// powers (rounded up to 16 bytes), then for each warp [kStages][512] its
+// input ring, [S1] its resample segment, [4][nsegs] its segment folds and
+// [hang_tiles] its hang ring (rounded up to 16 bytes).
+struct WarpLayout {
+  int H, S1, nsegs, hdr, per_warp;
+  __host__ __device__ WarpLayout(int per, int L, int seg, int hang_tiles) {
+    const Layout lay(per, kTile, seg);
+    H = lay.H;
+    S1 = lay.S1;
+    nsegs = lay.nsegs;
+    hdr = (per * L + 2 * kPowN + 3) / 4 * 4;
+    per_warp =
+        (kStages * kStageFloats + S1 + 4 * nsegs + hang_tiles + 3) / 4 * 4;
+  }
+  __host__ __device__ size_t floats() const {
+    return hdr + (size_t)kAmWarps * per_warp;
+  }
+};
+
+// ×L polyphase resample of one channel's tile by its warp, in passes of
+// 128 input samples: lane l takes samples 4l … 4l+3 of a pass, so each P
+// row loaded serves 4 samples and the window slides in registers (3
+// shared loads a sample, against 2 a tap and sample when a thread takes
+// one sample). Their 16 outputs go to `buf` (the ring slot the tile left,
+// in the stage's chunk order: conflict-free), from where the warp stores
+// the pass's 2 KB of audio in 16-byte pieces with lanes along time, whole
+// 128-byte lines an instruction, as streaming stores (0.49-0.50 ms against
+// 0.50-0.52 with plain ones). Any other L: one output at a time.
+template <int kL>
+__device__ void warp_resample(const TailArgs& a, const float* ps,
+                              const float* row, int H, float* buf,
+                              float* dst, int t0, int tlen) {
+  const int lane = threadIdx.x & 31;
+  const int hoff = H - (a.per - 1);
+  if (kL != 4) {
+    for (int n = lane; n < tlen; n += 32)
+      for (int q = 0; q < a.L; ++q) {
+        float acc = 0.f;
+        for (int m = 0; m < a.per; ++m)
+          acc += ps[m * a.L + q] * row[skew(hoff + n + m)];
+        dst[((long)t0 + n) * a.L + q] = acc;
+      }
+    return;
+  }
+  float4* b4 = reinterpret_cast<float4*>(buf);
+  for (int h = 0; h < tlen; h += 32 * kRS) {
+    const int n0 = h + lane * kRS;
+    float acc[kRS][4], win[kRS];
+#pragma unroll
+    for (int r = 0; r < kRS; ++r) {
+      win[r] = row[skew(hoff + n0 + r)];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+    }
+    for (int m = 0; m < a.per; ++m) {
+      const float4 p4 = reinterpret_cast<const float4*>(ps)[m];
+#pragma unroll
+      for (int r = 0; r < kRS; ++r) {
+        acc[r][0] += p4.x * win[r];
+        acc[r][1] += p4.y * win[r];
+        acc[r][2] += p4.z * win[r];
+        acc[r][3] += p4.w * win[r];
+      }
+      if (m + 1 < a.per) {
+#pragma unroll
+        for (int r = 0; r < kRS - 1; ++r) win[r] = win[r + 1];
+        win[kRS - 1] = row[skew(hoff + n0 + kRS + m)];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRS; ++r)
+      b4[il_chunk(lane * kRS + r)] =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kRS; ++k) {
+      const int q = lane + 32 * k;
+      if (h + q < tlen)
+        __stcs(reinterpret_cast<float4*>(dst + ((long)t0 + h + q) * 4),
+               b4[il_chunk(q)]);  // streaming: written once, evict first
+    }
+    __syncwarp();
+  }
+}
+
+// A warp a channel, each on its own: blocks of kAmWarps warps meet once,
+// after the tables; from there a warp syncs only with itself, so no block
+// waits for its slowest channel and the hardware spreads the C / kAmWarps
+// blocks over the SMs to within one block. Each warp keeps kStages tiles
+// of its input in a ring of 16-byte asynchronous copies (a lane copies 4
+// chunks of 2 samples a tile, lanes along time: 512 bytes an instruction)
+// and starts the copy of the tile two ahead before it scans the current
+// one, so two tiles are in flight while one is scanned and resampled. The
+// ring is the warp's alone, so its own cp.async groups and a __syncwarp
+// order it.
+template <int kDemod>
+__global__ void __launch_bounds__(kAmWarps * 32, 24 / kAmWarps)
+chain_tail_am_c_kernel(const float2* __restrict__ y, long y_sc, int nf,
+                       int accum_pow, TailArgs a) {
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  const WarpLayout wl(a.per, a.L, a.seg, a.hang_tiles);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int c = blockIdx.x * kAmWarps + (tid >> 5);
+  float* ps = smem;
+  float* pows = ps + a.per * a.L;
+  load_tables(a, ps, pows, tid, kAmWarps * 32);
+  __syncthreads();
+  if (c >= a.C) return;
+  float* stage = smem + wl.hdr + (tid >> 5) * wl.per_warp;
+  float* out = stage + kStages * kStageFloats;
+  float* folds = out + wl.S1;
+  ScanRows rw{stage, -1, out, wl.H, folds, folds + wl.nsegs,
+              folds + 2 * wl.nsegs, folds + 3 * wl.nsegs,
+              folds + 4 * wl.nsegs, 1};
+  for (int k = lane; k < a.hang_tiles; k += 32) rw.ring[k] = kNegBig;
+  Carry cr;
+  load_carry(a, cr, out, wl.H, c, lane);
+  const float2* src = y + (long)c * y_sc;
+  float* dst = a.audio + (long)c * a.a_sc;
+  const int ntiles = (nf + kTile - 1) / kTile;
+  // tile i into its ring slot; past the chunk: an empty group
+  auto prefetch = [&](int i) {
+    if (i < ntiles) {
+      const int t0 = i * kTile, tlen = min(kTile, nf - t0);
+      float* slot = stage + (i % kStages) * kStageFloats;
+#pragma unroll
+      for (int k = 0; k < kTile / 2 / 32; ++k) {
+        const int q = lane + 32 * k;
+        const int n = min(2, max(0, tlen - 2 * q));  // samples it holds
+        cp_async<16>(slot + 4 * il_chunk(q), n ? src + t0 + 2 * q : src,
+                     8 * n);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) prefetch(i);
+
+  int tlen_prev = 0;
+  for (int i = 0; i < ntiles; ++i) {
+    const int t0 = i * kTile, tlen = min(kTile, nf - t0);
+    if (i > 0) {  // the previous tile's last per−1 samples: this history
+      const int n = a.per - 1;
+      for (int m = lane; m < n; m += 32)
+        out[skew(wl.H - n + m)] = out[skew(wl.H + tlen_prev - n + m)];
+    }
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+    __syncwarp();
+    prefetch(i + kStages - 1);  // into the slot tile i − 1 left
+    float* slot = stage + (i % kStages) * kStageFloats;
+    rw.y = slot;
+    tail_scan<kDemod>(a, pows, rw, cr, t0, tlen, accum_pow);
+    __syncwarp();  // the slot is free from here: the resampler's buffer
+    if (a.L == 4)
+      warp_resample<4>(a, ps, out, wl.H, slot, dst, t0, tlen);
+    else
+      warp_resample<0>(a, ps, out, wl.H, slot, dst, t0, tlen);
+    tlen_prev = tlen;
+    __syncwarp();
+  }
+  finish_channel(a, cr, out, wl.H, c, tlen_prev, accum_pow);
+}
+
 // Launch a tail kernel on `blocks` blocks; a.cluster: in clusters of
 // kCluster consecutive blocks (the grid rounded up: a block past the last
 // channel masks everything), which keep step tile by tile.
 template <typename... Params, typename... Args>
-cudaError_t launch_tail(void (*kern)(Params...), int blocks, size_t smem,
-                        cudaStream_t stream, bool cluster, Args... args) {
+cudaError_t launch_tail(void (*kern)(Params...), int blocks, int threads,
+                        size_t smem, cudaStream_t stream, bool cluster,
+                        Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster ? (blocks + kCluster - 1) / kCluster * kCluster
                              : blocks);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -1007,8 +1289,9 @@ cudaError_t launch_fir(const void* x_re, const void* x_im, int x_bf16,
   const size_t smem =
       (fir + lay.floats(a.per, a.L, a.hang_tiles)) * sizeof(float);
   return launch_tail(chain_tail_fir_kernel<kCplx, kDemod, kFirBf16>,
-                     n1 * n2 / kCB, smem, stream, a.cluster != 0, x_re, x_im,
-                     x_bf16, nf, n2, head_re, head_im, h_re, h_im, n_taps, a);
+                     n1 * n2 / kCB, kThreads, smem, stream, a.cluster != 0,
+                     x_re, x_im, x_bf16, nf, n2, head_re, head_im, h_re,
+                     h_im, n_taps, a);
 }
 
 template <bool kCplx, bool kFirBf16>
@@ -1042,8 +1325,33 @@ cudaError_t launch_am(const float* y_re, const float* y_im, long y_st,
   const size_t smem =
       lay.floats(a.per, a.L, a.hang_tiles) * sizeof(float);
   return launch_tail(chain_tail_am_kernel<kDemod>, (a.C + kCB - 1) / kCB,
-                     smem, stream, a.cluster != 0, y_re, y_im, y_st, y_sc,
-                     y_st < y_sc ? 1 : 0, nf, accum_pow, a);
+                     kThreads, smem, stream, a.cluster != 0, y_re, y_im, y_st,
+                     y_sc, nf, accum_pow, a);
+}
+
+template <int kDemod>
+cudaError_t am_c_attrs(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      chain_tail_am_c_kernel<kDemod>,
+      cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(chain_tail_am_c_kernel<kDemod>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <int kDemod>
+cudaError_t launch_am_c(const void* y, long y_sc, int nf, int accum_pow,
+                        const TailArgs& a, cudaStream_t stream) {
+  const size_t smem =
+      WarpLayout(a.per, a.L, a.seg, a.hang_tiles).floats() * sizeof(float);
+  const cudaError_t err = am_c_attrs<kDemod>(smem);
+  if (err != cudaSuccess) return err;
+  return launch_tail(chain_tail_am_c_kernel<kDemod>,
+                     (a.C + kAmWarps - 1) / kAmWarps, kAmWarps * 32, smem,
+                     stream, false, static_cast<const float2*>(y), y_sc, nf,
+                     accum_pow, a);
 }
 
 bool tail_args_ok(const TailArgs& a, int nf) {
@@ -1076,7 +1384,7 @@ int chain_tail_fir(const void* x_re, const void* x_im, int x_bf16, int n1,
                    int seg, int hang_tiles, const float* st_in, float* st_out,
                    float* audio, void* stream) {
   const TailArgs a{P, per, L, rs_bf16, params, seg, hang_tiles, st_in,
-                   st_out, n1 * n2, audio, (long)n1 * n2, 1L, 0, 0};
+                   st_out, n1 * n2, audio, (long)n1 * n2, 1L, 0};
   if (n2 % kCB || n_taps < 2 || !tail_args_ok(a, nf))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1093,19 +1401,20 @@ int chain_tail_fir(const void* x_re, const void* x_im, int x_bf16, int n1,
 #undef SSDR_TAIL
 }
 
-// y_*: the passband's re and im, element (i, c) at y_*[i·y_st + c·y_sc] for
-// i < nf, c < C (a complex64 tensor's two views, or two f32 planes); audio
-// sample (k, c) written at audio[k·a_st + c·a_sc], k < nf·L; the rest as
-// chain_tail_fir, with the power row written only when accum_pow (else 0).
+// y_*: the passband's re and im planes, element (i, c) at y_*[i·y_st +
+// c·y_sc] for i < nf, c < C; audio sample (k, c) written at audio[k·a_st +
+// c·a_sc], k < nf·L, time-major (a_st ≥ a_sc: the kernel stores 8 channels
+// side by side, in clusters of four blocks); the rest as chain_tail_fir,
+// with the power row written only when accum_pow (else 0). Chain-major
+// audio comes from chain_tail_am_c.
 int chain_tail_am(const float* y_re, const float* y_im, long y_st, long y_sc,
                   int nf, int C, const float* P, int per, int L,
                   const float* params, int demod, int seg, int hang_tiles,
                   int accum_pow, const float* st_in, float* st_out,
                   float* audio, long a_st, long a_sc, void* stream) {
   const TailArgs a{P, per, L, 0, params, seg, hang_tiles, st_in, st_out,
-                   C, audio, a_st, a_sc, a_st < a_sc ? 1 : 0,
-                   a_st < a_sc ? 0 : 1};
-  if (!tail_args_ok(a, nf) || y_st < 1 || y_sc < 1 || a_st < 1 || a_sc < 1)
+                   C, audio, a_st, a_sc, 1};
+  if (!tail_args_ok(a, nf) || y_st < 1 || y_sc < 1 || a_sc < 1 || a_st < a_sc)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (demod) {
@@ -1120,6 +1429,73 @@ int chain_tail_am(const float* y_re, const float* y_im, long y_st, long y_sc,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// y: a complex64 passband [C, nf], row c at y + c·y_sc complex elements,
+// contiguous in time; y 16-byte aligned and y_sc even (every tile's rows
+// are read in 16-byte pieces). audio: chain-major [C, nf·L], row c at
+// audio + c·a_sc; with L = 4, audio 16-byte aligned and a_sc a multiple of
+// 4. The rest as chain_tail_am.
+int chain_tail_am_c(const void* y, long y_sc, int nf, int C, const float* P,
+                    int per, int L, const float* params, int demod, int seg,
+                    int hang_tiles, int accum_pow, const float* st_in,
+                    float* st_out, float* audio, long a_sc, void* stream) {
+  const TailArgs a{P, per, L, 0, params, seg, hang_tiles, st_in, st_out,
+                   C, audio, 1L, a_sc, 0};
+  const bool wide = reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                    y_sc % 2 == 0 && y_sc >= nf && a_sc >= (long)nf * L &&
+                    (L != 4 || (reinterpret_cast<uintptr_t>(audio) % 16 == 0
+                                && a_sc % 4 == 0));
+  if (!tail_args_ok(a, nf) || !wide || per - 1 > kTile)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (demod) {
+    case kAM:
+      return (int)launch_am_c<kAM>(y, y_sc, nf, accum_pow, a, s);
+    case kSSB:
+      return (int)launch_am_c<kSSB>(y, y_sc, nf, accum_pow, a, s);
+    case kNBFM:
+      return (int)launch_am_c<kNBFM>(y, y_sc, nf, accum_pow, a, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// What a non-FIR entry launches for these shapes (chain_major: the
+// chain-major entry, else the 8-channel one): out[0] shared bytes a block,
+// out[1] blocks, out[2] threads a block, out[3] blocks an SM can hold (the
+// occupancy calculator; AM).
+int chain_tail_am_launch(int chain_major, int C, int per, int L, int seg,
+                         int hang_tiles, long* out) {
+  if (per < 2 || L < 1 || seg < 1 || C < 1 || hang_tiles < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  int n = 0;
+  if (chain_major) {
+    const size_t smem =
+        WarpLayout(per, L, seg, hang_tiles).floats() * sizeof(float);
+    out[0] = (long)smem;
+    out[1] = (C + kAmWarps - 1) / kAmWarps;
+    out[2] = kAmWarps * 32;
+    err = am_c_attrs<kAM>(smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, chain_tail_am_c_kernel<kAM>, kAmWarps * 32, smem);
+  } else {
+    const size_t smem =
+        Layout(per, kTile, seg).floats(per, L, hang_tiles) * sizeof(float);
+    out[0] = (long)smem;
+    out[1] = (C + kCB - 1) / kCB;
+    out[2] = kThreads;
+    err = cudaFuncSetAttribute(chain_tail_am_kernel<kAM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, chain_tail_am_kernel<kAM>, kThreads, smem);
+  }
+  out[3] = n;
+  return (int)err;
 }
 
 }  // extern "C"

@@ -7,12 +7,15 @@ Counterparts of `supersdr_tpu/ops/pallas/chain_tail.py`:
                   in front, reading the channelizer's raw planar planes
                   (the planar wideband path);
   chain_tail_am   `_kernel` (`chain_tail_am` without `fir`): the tail on an
-                  already filtered passband y [nf, C] given by element
-                  strides, so a chain-major [C, nf] source is read without a
-                  transpose; audio comes out time-major [nf·L, C] or
-                  chain-major [C, nf·L].
+                  already filtered passband y [nf, C] given as two float32
+                  planes by element strides, time-major audio [nf·L, C]
+                  (the time-major wideband tier); on the CPU also
+                  chain-major audio [C, nf·L];
+  chain_tail_am_c the same tail on a complex64 passband [C, nf] handed
+                  over as it lies, chain-major audio [C, nf·L] (the chain's
+                  tail tier and the chan-major wideband tier).
 
-The kernels are the two entries of `csrc/chain_tail.cu`; `chain_tail_plain`
+The kernels are the entries of `csrc/chain_tail.cu`; `chain_tail_plain`
 and `chain_tail_am_plain` are the same functions in plain PyTorch,
 vectorised over channels, with the reference's tiles of `tile_t` samples
 and its in-tile doubling scans, so they track the reference's rounding
@@ -318,6 +321,21 @@ def chain_tail_fir(x_r: torch.Tensor, x_i: torch.Tensor,
 chain_tail_fir.launches = 0
 
 
+def _check_am(dev, C: int, nf: int, st_rows, params, P, tile_t: int,
+              demod: str) -> None:
+    """Raise unless the non-FIR tail's other arguments fit C channels and
+    nf samples on `dev`."""
+    PER, L = P.shape
+    if demod not in DEMODS:
+        raise ValueError(f"demod must be one of {sorted(DEMODS)}")
+    if nf % tile_t:
+        raise ValueError("chunk must be a multiple of tile_t")
+    _check(dev, (
+        ("st_rows", st_rows, (torch.float32,), (4 + PER, C)),
+        ("params", params, (torch.float32,), (N_PARAMS,)),
+        ("P", P, (torch.float32,), (PER, L))))
+
+
 def chain_tail_am_plain(yT_r, yT_i, st_rows, params, P, *, tile_t: int,
                         demod: str, accum_pow: bool = False,
                         hang_window: int = 0, audio_layout: str = "time"
@@ -332,14 +350,12 @@ def chain_tail_am_plain(yT_r, yT_i, st_rows, params, P, *, tile_t: int,
 
 
 def _launch_am(yT_r, yT_i, st_rows, params, P, *, tile_t, demod, accum_pow,
-               hang_window, audio_layout):
+               hang_window):
     lib = _build.load()
     nf, C = yT_r.shape
     PER, L = P.shape
-    shape = (C, nf * L) if audio_layout == "chan" else (nf * L, C)
-    audio = torch.empty(shape, dtype=torch.float32, device=yT_r.device)
-    a_st, a_sc = audio.stride() if audio_layout == "time" \
-        else audio.stride()[::-1]
+    audio = torch.empty(nf * L, C, dtype=torch.float32, device=yT_r.device)
+    a_st, a_sc = audio.stride()
     st_out = torch.empty_like(st_rows)
     p = ctypes.c_void_p
     err = lib.chain_tail_am(
@@ -362,38 +378,97 @@ def chain_tail_am(yT_r: torch.Tensor, yT_i: torch.Tensor,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the non-FIR tail on one chunk of an already filtered passband.
 
-    yT_r/yT_i: float32 [nf, C] views of y's real and imaginary parts, any
-    positive strides (e.g. `y.real.T` / `y.imag.T` of a complex64 [C, nf]
-    tensor); st_rows: [4 + per, C] state rows; params: [9]; P: [per, L].
-    tile_t: the reference's tail tile (a divisor of nf: the peak segment
-    and the hang tile); accum_pow: fill the power row with Σ|y|²;
+    yT_r/yT_i: float32 [nf, C] planes of y's real and imaginary parts, any
+    positive strides (the kernel reads 8 channels side by side, so
+    time-major planes); st_rows: [4 + per, C] state rows; params: [9]; P:
+    [per, L]. tile_t: the reference's tail tile (a divisor of nf: the peak
+    segment and the hang tile); accum_pow: fill the power row with Σ|y|²;
     hang_window: the AGC hang window in samples (≤ 1 = none);
-    audio_layout: "time" → audio [nf·L, C], "chan" → [C, nf·L]. Returns
-    (audio, state rows out)."""
+    audio_layout: "time" → audio [nf·L, C], "chan" → [C, nf·L], the latter
+    on the CPU only (on the card chain-major audio comes from
+    `chain_tail_am_c`, which reads the complex passband as it lies).
+    Returns (audio, state rows out)."""
     nf, C = yT_r.shape
-    PER, L = P.shape
-    if demod not in DEMODS:
-        raise ValueError(f"demod must be one of {sorted(DEMODS)}")
     if audio_layout not in ("time", "chan"):
         raise ValueError("audio_layout must be 'time' or 'chan'")
-    if nf % tile_t:
-        raise ValueError("chunk must be a multiple of tile_t")
     dev = yT_r.device
-    _check(dev, (
-        ("yT_r", yT_r, (torch.float32,), (nf, C), False),
-        ("yT_i", yT_i, (torch.float32,), (nf, C), False),
-        ("st_rows", st_rows, (torch.float32,), (4 + PER, C)),
-        ("params", params, (torch.float32,), (N_PARAMS,)),
-        ("P", P, (torch.float32,), (PER, L))))
+    _check(dev, (("yT_r", yT_r, (torch.float32,), (nf, C), False),
+                 ("yT_i", yT_i, (torch.float32,), (nf, C), False)))
+    _check_am(dev, C, nf, st_rows, params, P, tile_t, demod)
     if min(yT_r.stride()) < 1 or yT_r.stride() != yT_i.stride():
         raise ValueError("yT_r and yT_i need the same positive strides")
     kw = dict(tile_t=tile_t, demod=demod, accum_pow=accum_pow,
-              hang_window=hang_window, audio_layout=audio_layout)
+              hang_window=hang_window)
     if dev.type == "cpu":
-        return chain_tail_am_plain(yT_r, yT_i, st_rows, params, P, **kw)
+        return chain_tail_am_plain(yT_r, yT_i, st_rows, params, P,
+                                   audio_layout=audio_layout, **kw)
     if dev.type == "cuda":
+        if audio_layout != "time":
+            raise ValueError("on the card chain-major audio comes from "
+                             "chain_tail_am_c")
         return _launch_am(yT_r, yT_i, st_rows, params, P, **kw)
     raise ValueError(f"unsupported device {dev}")
 
 
 chain_tail_am.launches = 0
+
+
+def wide_rows_ok(y: torch.Tensor) -> bool:
+    """Whether the chain-major kernel reads complex64 y [C, nf] in 16-byte
+    pieces: contiguous in time, the first element and every row 16-byte
+    aligned (an even row stride), rows not overlapping."""
+    return (y.stride(1) == 1 and y.stride(0) % 2 == 0
+            and y.stride(0) >= y.shape[1] and y.data_ptr() % 16 == 0)
+
+
+def _launch_am_c(y, st_rows, params, P, *, tile_t, demod, accum_pow,
+                 hang_window):
+    lib = _build.load()
+    C, nf = y.shape
+    PER, L = P.shape
+    audio = torch.empty(C, nf * L, dtype=torch.float32, device=y.device)
+    st_out = torch.empty_like(st_rows)
+    p = ctypes.c_void_p
+    err = lib.chain_tail_am_c(
+        p(y.data_ptr()), y.stride(0), nf, C, p(P.data_ptr()), PER, L,
+        p(params.data_ptr()), DEMODS[demod], tile_t,
+        hang_tiles_for(hang_window, tile_t), int(accum_pow),
+        p(st_rows.data_ptr()), p(st_out.data_ptr()), p(audio.data_ptr()),
+        audio.stride(0), _stream(y))
+    _build.check(err, "chain_tail_am_c")
+    chain_tail_am_c.launches += 1
+    return audio, st_out
+
+
+def chain_tail_am_c(y: torch.Tensor, st_rows: torch.Tensor,
+                    params: torch.Tensor, P: torch.Tensor, *, tile_t: int,
+                    demod: str, accum_pow: bool = False,
+                    hang_window: int = 0
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the non-FIR tail on one chunk of a chain-major passband.
+
+    y: complex64 [C, nf], positive strides; audio comes out chain-major
+    [C, nf·L]; the rest as `chain_tail_am`. On the card y's rows must pass
+    `wide_rows_ok` (the kernel reads them in 16-byte pieces, a warp a
+    channel), else this raises; the chain's passband always does. On the
+    CPU any strides go to the plain version. Returns (audio, state rows
+    out)."""
+    if y.dtype != torch.complex64 or y.dim() != 2:
+        raise ValueError(f"y: expected complex64 [C, nf], got {y.dtype} "
+                         f"{tuple(y.shape)}")
+    if min(y.stride()) < 1:
+        raise ValueError("y needs positive strides")
+    C, nf = y.shape
+    kw = dict(tile_t=tile_t, demod=demod, accum_pow=accum_pow,
+              hang_window=hang_window)
+    if y.device.type != "cuda":
+        return chain_tail_am(y.real.T, y.imag.T, st_rows, params, P,
+                             audio_layout="chan", **kw)
+    if not wide_rows_ok(y):
+        raise ValueError("y: the card reads rows contiguous in time, "
+                         "16-byte aligned, with an even row stride")
+    _check_am(y.device, C, nf, st_rows, params, P, tile_t, demod)
+    return _launch_am_c(y, st_rows, params, P, **kw)
+
+
+chain_tail_am_c.launches = 0

@@ -13,7 +13,7 @@ continuous. The chain batches over any leading axes of the input.
 Two back halves, chosen exactly as the reference does (`_pallas_tail_ok`):
 a 1-D batch of ≥ 128 receivers in AM/USB/LSB/CW/NBFM with an integer
 upsample runs demod → resample as one kernel launch
-(`ops/cuda/chain_tail.chain_tail_am`, `_process_tail_pallas`); anything
+(`ops/cuda/chain_tail.chain_tail_am_c`, `_process_tail_pallas`); anything
 else runs the plain ops below, which is the reference's own XLA path. The
 wideband time-major tiers call `process_tail_tmajor` with the channelizer's
 raw planes or its time-major planes (`chain_tail_fir`, passband fused in),
@@ -361,14 +361,13 @@ def _process_tail_pallas(cfg: ChainConfig, params: ChainParams,
                          state: ChainState, phase: torch.Tensor,
                          y: torch.Tensor, rssi: torch.Tensor,
                          os_carry: cx.CX) -> tuple[ChainState, ChainOutput]:
-    """Fused back half on y [C, chunk] (complex64): one `chain_tail_am`
+    """Fused back half on y [C, chunk] (complex64): one `chain_tail_am_c`
     launch reads y in place (no transpose) and writes audio [C,
     chunk·L]; then the squelch gate at the audio rate."""
-    audio, st2 = chain_tail.chain_tail_am(
-        y.real.T, y.imag.T, _state_rows(cfg, state),
-        _tail_params_vec(params, cfg), params.P_interp,
-        tile_t=_tail_tile(cfg.chunk, cfg.n_taps), demod=_tail_demod(cfg),
-        hang_window=_tail_hang_window(cfg), audio_layout="chan")
+    audio, st2 = chain_tail.chain_tail_am_c(
+        y, _state_rows(cfg, state), _tail_params_vec(params, cfg),
+        params.P_interp, tile_t=_tail_tile(cfg.chunk, cfg.n_taps),
+        demod=_tail_demod(cfg), hang_window=_tail_hang_window(cfg))
     sq_state = state.squelch
     if cfg.squelch_enabled:
         sq_state, audio = squelch_ops.apply_squelch(

@@ -14,10 +14,15 @@ inputs and the plain versions are `chip_smoke.py`'s at HEADLINE (2560
 channels × 16128 frames; the time store at 16200). NAMES, comma
 separated: chan_fast, chan_quality (float32 and int16 raw planes and the
 time store), tail_fast, tail_quality (the FIR tail on the channelizer's
-planes), am (the non-FIR tail); and, by name only, two of `chip_smoke.py`'s
-phases whole, end to end: sharded (SHARDED and the 2 × 4 grid, sharded and
-serial ms a call) and mesh (HEADLINE through the sharded wideband on 8, 4
-and 2 shards, ms a chunk), which print their own checks and `time` lines.
+planes), am (the non-FIR tail on a chain-major complex [2560, 16128]
+passband, chain-major audio), am_time (the same tail on time-major planes
+[16128, 2560] with time-major audio and the power row, the 33-tap
+branch's peak segment), am_batch (the tail as `chain.process` runs it on
+128 and on 2560 receivers × 2048 samples); and, by name only, three of
+`chip_smoke.py`'s phases whole, end to end: sharded (SHARDED and the 2 × 4 grid, sharded and
+serial ms a call), mesh (HEADLINE through the sharded wideband on 8, 4
+and 2 shards, ms a chunk) and chanmajor (CHANMAJOR, ms a chunk, its
+kernels and its profile), which print their own checks and `time` lines.
 In the first turn every kernel is also held against its plain version and
 the SNR printed (nothing is asserted: a copy with a phase compiled out
 disagrees by design). Each process prints one line `RESULT <tree> {name:
@@ -32,8 +37,9 @@ import os
 import subprocess
 import sys
 
-ALL = ("chan_fast", "chan_quality", "tail_fast", "tail_quality", "am")
-PHASES = ("sharded", "mesh")
+ALL = ("chan_fast", "chan_quality", "tail_fast", "tail_quality", "am",
+       "am_time", "am_batch")
+PHASES = ("sharded", "mesh", "chanmajor")
 
 
 def time_tree(what: tuple, check: bool) -> None:
@@ -43,6 +49,7 @@ def time_tree(what: tuple, check: bool) -> None:
 
     import chip_smoke as cs
     from supersdr_tpu_torch import _build
+    from supersdr_tpu_torch.runtime import chain
     from supersdr_tpu_torch.runtime import wideband as wb
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
@@ -83,10 +90,26 @@ def time_tree(what: tuple, check: bool) -> None:
         y = torch.randn(2560, 16128, generator=gen, device=dev,
                         dtype=torch.complex64) * 0.05
         run("am", *cs._am_case(2560, 16128, gen, device=dev, y=y))
+        del y
+    if "am_time" in what:
+        yT = [torch.randn(16128, 2560, generator=gen, device=dev) * 0.05
+              for _ in range(2)]
+        run("am_time", *cs._am_case(2560, 16128, gen, device=dev, yT=yT,
+                                    n_taps=33))
+        del yT
+    if "am_batch" in what:
+        ccfg = chain.ChainConfig()
+        for n_rx in (128, 2560):
+            y = torch.randn(n_rx, ccfg.chunk, generator=gen, device=dev,
+                            dtype=torch.complex64) * 0.05
+            run(f"am_batch{n_rx}", *cs._am_case(
+                n_rx, ccfg.chunk, gen, device=dev, y=y, n_taps=ccfg.n_taps))
     if "sharded" in what:
         cs.phase_sharded(dev)
     if "mesh" in what:
         cs.phase_mesh(dev, {})
+    if "chanmajor" in what:
+        cs.phase_chanmajor_timing(cs.phase_chanmajor(cs.HEADLINE, dev), {})
     print("RESULT", os.path.basename(os.getcwd()), json.dumps(res),
           flush=True)
 

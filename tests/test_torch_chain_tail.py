@@ -224,28 +224,54 @@ def _bursty_planes(mode, rng, nf, C):
 
 
 # (mode, accum_pow, hang ring tiles) — the window W gives
-# ceil((W − 1)/T) ring tiles at T = 128
+# ceil((W − 1)/T) ring tiles at T = 128 — on 256 channels × NF samples,
+# the two-view form
 AM_CASES = [("AM", False, 0), ("AM", True, 1), ("AM", True, 7),
             ("USB", True, 0), ("USB", False, 7), ("NBFM", True, 1),
             ("NBFM", False, 0)]
 T_AM = 128
+# The complex call form (`chain_tail_am_c`, as `chain._process_tail_pallas`
+# hands over y) at (channels, samples, peak segment), the hang window
+# W = 300 where the ring has tiles; 12 channels leave the last block of 8
+# ragged
+CPLX_SIZES = [(16, 512, 64), (12, 640, 128)]
+CPLX_CASES = [(mode, mode != "USB", -(-299 // seg) if hang else 0,
+               (C_, nf, seg))
+              for mode, hang in (("AM", False), ("AM", True), ("USB", False),
+                                 ("NBFM", False))
+              for C_, nf, seg in CPLX_SIZES]
+AM_ALL = [c + (None,) for c in AM_CASES] + CPLX_CASES
 
 
-@pytest.mark.parametrize("mode,accum,tiles", AM_CASES)
-def test_tail_am_matches_reference_two_calls(mode, accum, tiles):
+def _am_case_id(case) -> str:
+    mode, accum, tiles, size = case
+    name = f"{mode}-{accum}-{tiles}"
+    return name if size is None else f"{name}-complex-{size[0]}x{size[1]}"
+
+
+@pytest.mark.parametrize("mode,accum,tiles,size", AM_ALL,
+                         ids=[_am_case_id(c) for c in AM_ALL])
+def test_tail_am_matches_reference_two_calls(mode, accum, tiles, size):
     """The non-FIR tail's plain version against `chain_tail_am` without
-    `fir` (the reference's `_kernel`), with the hang flag on: y handed
-    over as the real/imag views of a chain-major complex [C, nf] tensor,
-    audio asked for chain-major, as `chain._process_tail_pallas` does."""
-    C_ = 256
-    W = {0: 0, 1: 100, 7: 6 * T_AM + 50}[tiles]
-    assert tct.hang_tiles_for(W, T_AM) == tiles
-    cfg = tchain.ChainConfig(mode=mode, iq_rate=FS, chunk=NF, os_block=NF,
+    `fir` (the reference's `_kernel`), over two chained calls, with the
+    hang flag honoured at run time. size None: y handed over as the
+    real/imag views of a chain-major complex [C, nf] tensor, audio asked
+    for chain-major, the hang flag on; size (C, nf, seg): the complex
+    tensor itself (`chain_tail_am_c`), the hang flag on only with a hang
+    window."""
+    C_, nf, seg = size or (256, NF, T_AM)
+    lane = min(C_, 128)
+    if size is None:
+        W = {0: 0, 1: 100, 7: 6 * T_AM + 50}[tiles]
+    else:
+        W = 300 if tiles else 0
+    assert tct.hang_tiles_for(W, seg) == tiles
+    cfg = tchain.ChainConfig(mode=mode, iq_rate=FS, chunk=nf, os_block=nf,
                              n_taps=N_TAPS)
-    tp = tchain.make_params(cfg, agc_kwargs=dict(on=mode != "NBFM",
-                                                 hang=True), device="cpu")
+    tp = tchain.make_params(cfg, agc_kwargs=dict(
+        on=mode != "NBFM", hang=size is None or W > 0), device="cpu")
     par = tchain._tail_params_vec(tp, cfg)
-    assert float(par[8]) == 1.0
+    assert float(par[8]) == float(size is None or W > 0)
     P = tp.P_interp
     PER, L = P.shape
     rows_j = 4 + PER - 1 + int(accum)
@@ -254,22 +280,25 @@ def test_tail_am_matches_reference_two_calls(mode, accum, tiles):
     st_t = torch.zeros(4 + PER, C_)
     st_t[2] = -120.0
     demod = tchain._tail_demod(cfg)
-    rng = np.random.default_rng(8)
+    kw = dict(tile_t=seg, demod=demod, accum_pow=accum, hang_window=W)
+    rng = np.random.default_rng(8 if size is None else 21)
     for call in range(2):
-        yr, yi = _bursty_planes(mode, rng, NF, C_)
+        yr, yi = _bursty_planes(mode, rng, nf, C_)
         a_j, st2 = jct.chain_tail_am(
             jnp.asarray(yr), jnp.asarray(yi),
-            jnp.asarray(st_j.reshape(rows_j, C_ // 128, 128)
+            jnp.asarray(st_j.reshape(rows_j, C_ // lane, lane)
                         .transpose(1, 0, 2)),
-            jnp.asarray(par.numpy()), P.numpy(), tile_t=T_AM, L=L,
-            demod=demod, interpret=True, accum_pow=accum, hang_window=W)
+            jnp.asarray(par.numpy()), P.numpy(), lane_c=lane, L=L,
+            interpret=True, **kw)
         st_j = np.asarray(st2).transpose(1, 0, 2).reshape(rows_j, C_)
         y = torch.complex(torch.from_numpy(yr.T.copy()),
                           torch.from_numpy(yi.T.copy()))      # [C, nf]
-        a_t, st_t = tct.chain_tail_am(
-            y.real.T, y.imag.T, st_t, par, P, tile_t=T_AM, demod=demod,
-            accum_pow=accum, hang_window=W, audio_layout="chan")
-        assert a_t.shape == (C_, NF * L)
+        if size is None:
+            a_t, st_t = tct.chain_tail_am(y.real.T, y.imag.T, st_t, par, P,
+                                          audio_layout="chan", **kw)
+        else:
+            a_t, st_t = tct.chain_tail_am_c(y, st_t, par, P, **kw)
+        assert a_t.shape == (C_, nf * L)
         skip = 1280 if (mode == "NBFM" and call == 0) else 0
         snr_a = _snr(np.asarray(a_j).T[:, skip:], a_t.numpy()[:, skip:])
         snr_s = _snr(st_j[:4 + PER - 1], st_t.numpy()[:4 + PER - 1])
@@ -369,3 +398,59 @@ def test_tail_am_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         tct.chain_tail_am(y, y.double(), st, par, tp.P_interp, tile_t=T_AM,
                           demod="am")
+
+
+def test_tail_am_complex_wrapper_rejects_bad_inputs():
+    cfg = tchain.ChainConfig(mode="AM", iq_rate=FS, chunk=NF, os_block=NF,
+                             n_taps=N_TAPS)
+    tp = tchain.make_params(cfg, device="cpu")
+    par = tchain._tail_params_vec(tp, cfg)
+    st = torch.zeros(4 + tp.P_interp.shape[0], 16)
+    y = torch.zeros(16, NF, dtype=torch.complex64)
+    kw = dict(tile_t=T_AM, demod="am")
+    for bad in (y.real.contiguous(), y.to(torch.complex128), y[0],
+                y[None], torch.zeros(1, NF, dtype=torch.complex64)
+                .expand(16, NF)):           # a row stride of 0
+        with pytest.raises(ValueError):
+            tct.chain_tail_am_c(bad, st, par, tp.P_interp, **kw)
+    with pytest.raises(ValueError):                  # state of 15 channels
+        tct.chain_tail_am_c(y, st[:, :15], par, tp.P_interp, **kw)
+    with pytest.raises(ValueError):                  # tile not dividing nf
+        tct.chain_tail_am_c(y, st, par, tp.P_interp, tile_t=96, demod="am")
+    with pytest.raises(ValueError):
+        tct.chain_tail_am_c(y, st, par, tp.P_interp, tile_t=T_AM,
+                            demod="fm")
+
+
+def test_wide_rows_ok():
+    """Which complex passbands the chain-major kernel reads in 16-byte
+    pieces; on the card `chain_tail_am_c` refuses the others."""
+    y = torch.zeros(12, 640, dtype=torch.complex64)
+    assert tct.wide_rows_ok(y)
+    assert tct.wide_rows_ok(y[:, :639])      # rows shorter than the stride
+    assert tct.wide_rows_ok(y[2:])           # whole rows off: aligned
+    assert not tct.wide_rows_ok(y[:, 1:])    # 8 bytes off
+    assert not tct.wide_rows_ok(torch.zeros(12, 641,
+                                            dtype=torch.complex64))
+    assert not tct.wide_rows_ok(y.T.contiguous().T)   # strided in time
+    assert not tct.wide_rows_ok(y[:, ::2])
+
+
+def test_chain_tail_tier_hands_over_the_complex_passband(monkeypatch):
+    """`chain.process` on ≥ 128 receivers gives the tail the complex
+    passband itself, in rows the chain-major kernel reads."""
+    seen = []
+    real = tct.chain_tail_am_c
+
+    def spy(y, *args, **kw):
+        seen.append((y.dtype, tuple(y.shape), tct.wide_rows_ok(y)))
+        return real(y, *args, **kw)
+    monkeypatch.setattr(tct, "chain_tail_am_c", spy)
+    cfg = tchain.ChainConfig(tail_impl="pallas")
+    p = tchain.make_params(cfg, device="cpu")
+    iq = np.random.default_rng(3).normal(size=(128, cfg.chunk)) \
+        .astype(np.complex64)
+    _, out = tchain.process(cfg, p, tchain.init_state(cfg, (128,),
+                                                      device="cpu"), iq)
+    assert seen == [(torch.complex64, (128, cfg.chunk), True)]
+    assert out.audio.shape == (128, cfg.chunk * cfg.upsample)
