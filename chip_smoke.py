@@ -15,12 +15,14 @@ Phases, each printed as it runs; any failure exits non-zero:
      at the MID shape (2560 channels, 512 frames a chunk): the channelizer
      on both tiers with float32 and int16 input (also at 2 × 256, 12 × 256
      and 5 × 512 channels, 40 frames), the FIR tail on AM, USB
-     (complex taps) and NBFM on both tiers and with AGC hang, the fold, and
+     (complex taps) and NBFM on both tiers and with AGC hang (also on 10
+     planes of 40 channels, both tiers), the fold, and
      the non-FIR tail on AM with hang off and on (500 and 40 ms), USB, NBFM
      (FM carriers, manual AGC), with the power row, handed the complex
      passband itself (also 2547 and 2548 channels; rows at an odd offset,
      and chain-major audio from the planes' entry, must be refused) and on
-     time-major planes; peak segments shorter than, as long as and longer
+     time-major planes (also 2548 and 40 channels: the last cluster of
+     four blocks short); peak segments shorter than, as long as and longer
      than the tails' 256-sample scan piece; plus ragged last tiles (13
      frames for the channelizer and the fold, 640 for both tails); the
      channelizer's time-major store (float32 and int16 input) and the FIR
@@ -35,8 +37,10 @@ Phases, each printed as it runs; any failure exits non-zero:
      and one non-FIR tail launch a chunk, audio [2560, 64512]; then ms a
      chunk, input Msamples/s, each kernel against and beside its plain
      version at HEADLINE (the channelizer also on int16 chunks, both tails
-     also on USB, NBFM and AM with the hang), and where the planar and the
-     CHANMAJOR device time goes, with the card's idle share;
+     also on USB, NBFM and AM with the hang), what each tail entry launches
+     (registers, stack, shared bytes, grid, blocks an SM, cluster dims and
+     the clusters resident at once; every FIR-tail instance), and where the
+     planar and the CHANMAJOR device time goes, with the card's idle share;
   5. row alignment on both main paths: two AM carriers come out as the two
      loudest RSSI rows;
   6. AGC hang and squelch on the planar HEADLINE path (launch counts
@@ -688,6 +692,19 @@ def phase_kernels(shape: dict, device, err: dict, seed: int = 7) -> None:
         _compare("chain_tail", f"{prof} {mode} nf={cfg.chunk_per_chan}",
                  *_tail_case(cfg, params, gen, device=device, tile=tile),
                  TOL_SNR_DB["tail"], device, err)
+    # 10 planes of 40 channels: 50 blocks, a block count that is no multiple
+    # of 4, 400 channels that are no multiple of 32
+    for prof in ("fast", "quality"):
+        cfg = wb.WidebandConfig(**shape, **wb.PROFILES[prof])
+        params = wb.make_params(cfg, device=device)
+        raw = [torch.randn(10, cfg.chunk_per_chan, 40, generator=gen,
+                           device=device) * 0.05 for _ in range(2)]
+        if prof == "fast":
+            raw = [r.to(torch.bfloat16) for r in raw]
+        _compare("chain_tail", f"{prof} AM [10, {cfg.chunk_per_chan}, 40] "
+                 f"planes", *_tail_case(cfg, params, gen, device=device,
+                                        raw=raw),
+                 TOL_SNR_DB["tail"], device, err)
     cfg = wb.WidebandConfig(**shape, **CHANMAJOR)
     params = wb.make_params(cfg, device=device)
     for nf in (None, 13):
@@ -723,12 +740,14 @@ def phase_kernels(shape: dict, device, err: dict, seed: int = 7) -> None:
                  *_am_case(n_ch, nf, gen, device=device, **kw),
                  TOL_SNR_DB["tail"], device, err)
     _am_refusals(C, nf, gen, device)
-    # time-major audio launches clusters of four blocks: also a channel
-    # count that leaves the last block ragged and the last cluster short
+    # time-major audio launches clusters of four blocks: also channel
+    # counts that leave the last block ragged and the last cluster short
+    # (C − 12: 319 blocks; 40: 5 blocks, one in the last cluster)
     for label, kw, n_ch in (("AM", {}, C),
                             ("USB hang 40 ms", dict(mode="USB", hang_ms=40.0),
                              C),
-                            ("AM", {}, C - 12)):
+                            ("AM", {}, C - 12),
+                            ("AM hang 40 ms", dict(hang_ms=40.0), 40)):
         yT = [torch.randn(nf, n_ch, generator=gen, device=device) * 0.05
               for _ in range(2)]
         _compare("chain_tail_am",
@@ -887,6 +906,10 @@ def phase_timing(runs: dict, err: dict, iters: int = 5,
             k_ms, p_ms = times[f"{name}_{prof}"]
             print(f"time {name} {prof}: kernel {k_ms:.3f} ms, "
                   f"plain {p_ms:.3f} ms", flush=True)
+        if prof == "fast":
+            _fir_launch_info(cfg, "HEADLINE", cfg.n_chan)
+            _tail_launch_info("chain_tail", "mesh [24, ·, 128] planes fast "
+                              "AM", 24 * 128, cfg.chain_cfg, 1 << 3)
         # the other demodulators through the scanned body at this length,
         # USB on complex taps, and AM with the hang
         for mode, agc, hang in (("USB", None, False),
@@ -974,7 +997,8 @@ def phase_chanmajor_timing(run: dict, err: dict, iters: int = 5,
     for name in ("pfb_fold", "chain_tail_am_c"):
         print(f"time {name}: kernel {times[name][0]:.3f} ms, "
               f"plain {times[name][1]:.3f} ms", flush=True)
-    _am_launch_info("chanmajor", cfg.n_chan, cfg.chain_cfg, chain_major=True)
+    _tail_launch_info("chain_tail_am_c", "chanmajor", cfg.n_chan,
+                      cfg.chain_cfg)
     # the other demodulators through the scanned body at this length (NBFM
     # on FM carriers with manual AGC), and AM with the hang
     for label, kw in (("USB", dict(mode="USB", y=y)),
@@ -1139,10 +1163,17 @@ def phase_chain(device, seed: int = 6) -> None:
                   res["cpu"][0], tol)
 
 
-def _am_launch_info(label: str, C: int, ccfg, chain_major: bool) -> None:
-    """What a non-FIR entry (chain_major: `chain_tail_am_c`, else
-    `chain_tail_am`) launches at these shapes: shared bytes a block,
-    blocks, threads, and the blocks an SM holds (occupancy API)."""
+TAIL_ENTRIES = {"chain_tail": 0, "chain_tail_am": 1, "chain_tail_am_c": 2}
+
+
+def _tail_launch_info(name: str, label: str, C: int, ccfg,
+                      variant: int = 0) -> None:
+    """What a tail entry (`TAIL_ENTRIES`; the FIR entry's `variant` =
+    demod | complex taps << 2 | bf16 operands << 3) launches at these
+    shapes, from the runtime and the occupancy calculator: registers and
+    stack bytes a thread, shared bytes a block, grid, blocks an SM, cluster
+    dims and the clusters resident at once, and whether the grid is one
+    wave."""
     import ctypes
     from supersdr_tpu_torch import _build
     from supersdr_tpu_torch.ops.cuda import chain_tail as ct
@@ -1150,14 +1181,35 @@ def _am_launch_info(label: str, C: int, ccfg, chain_major: bool) -> None:
     lib = _build.load()
     tile = chain._tail_tile(ccfg.chunk, ccfg.n_taps)
     hang = ct.hang_tiles_for(chain._tail_hang_window(ccfg), tile)
-    out = (ctypes.c_long * 4)()
-    _build.check(lib.chain_tail_am_launch(
-        int(chain_major), C, ccfg.interp_plan.per, ccfg.upsample, tile, hang,
-        ctypes.cast(out, ctypes.c_void_p)), "chain_tail_am_launch")
-    name = "chain_tail_am_c" if chain_major else "chain_tail_am"
-    print(f"launch {name} {label}: {out[0]} bytes shared a block, {out[1]} "
-          f"blocks of {out[2]} threads, {out[3]} blocks an SM ({C} channels, "
-          f"seg {tile}, {hang} hang slots)", flush=True)
+    out = (ctypes.c_long * 8)()
+    _build.check(lib.chain_tail_launch(
+        TAIL_ENTRIES[name], C, ccfg.n_taps, variant, ccfg.interp_plan.per,
+        ccfg.upsample, tile, hang, ctypes.cast(out, ctypes.c_void_p)),
+        "chain_tail_launch")
+    info = dict(zip(("smem", "blocks", "threads", "per_sm", "cluster",
+                     "clusters", "regs", "stack"), out))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    one_wave = (info["clusters"] * info["cluster"] if info["cluster"] > 1
+                else info["per_sm"] * sms) >= info["blocks"]
+    print(f"launch {name} {label}: {info['regs']} registers, "
+          f"{info['stack']} bytes stack; {info['smem']} bytes shared a "
+          f"block, {info['blocks']} blocks of {info['threads']} threads, "
+          f"{info['per_sm']} blocks an SM; cluster ({info['cluster']}, 1, "
+          f"1), {info['clusters']} clusters resident at once; one wave: "
+          f"{one_wave} ({C} channels, seg {tile}, {hang} hang slots)",
+          flush=True)
+
+
+def _fir_launch_info(cfg, label: str, C: int) -> None:
+    """`_tail_launch_info` of every FIR-tail instance (demodulator ×
+    complex taps × operand type) at cfg's chain."""
+    for demod in range(3):
+        for cplx in (0, 1):
+            for bf16 in (0, 1):
+                _tail_launch_info("chain_tail", f"{label} demod {demod} "
+                                  f"complex {cplx} bf16 {bf16}", C,
+                                  cfg.chain_cfg,
+                                  demod | cplx << 2 | bf16 << 3)
 
 
 def phase_am_batch(device, err: dict, iters: int = 20,
@@ -1196,7 +1248,7 @@ def phase_am_batch(device, err: dict, iters: int = 20,
         print(f"time chain_tail_am_c batch {n_rx} x {ccfg.chunk}: kernel "
               f"{k_ms:.4f} ms; chain.process {c_ms:.3f} ms a call",
               flush=True)
-        _am_launch_info(f"batch {n_rx}", n_rx, ccfg, chain_major=True)
+        _tail_launch_info("chain_tail_am_c", f"batch {n_rx}", n_rx, ccfg)
         del y, iq, st
     return times
 
@@ -1557,8 +1609,8 @@ def phase_tmajor(device, err: dict, planar_ms: dict, iters: int = 5,
     print(f"time chain_tail_am time-major 33 taps: kernel "
           f"{times['chain_tail_am_time'][0]:.3f} ms, plain "
           f"{times['chain_tail_am_time'][1]:.3f} ms", flush=True)
-    _am_launch_info("tmajor 33 taps", cfg.n_chan, cfg.chain_cfg,
-                    chain_major=False)
+    _tail_launch_info("chain_tail_am", "tmajor 33 taps", cfg.n_chan,
+                      cfg.chain_cfg)
     del kernel, plain
     ccfg = wb.WidebandConfig(**dict(HEADLINE, n_taps=33),
                              **dict(wb.PROFILES["quality"],

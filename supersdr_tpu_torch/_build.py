@@ -48,7 +48,7 @@ SIGNATURES = {
                       _I, _P, _P, _P, _L, _L, _P],
     "chain_tail_am_c": [_P, _L, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P,
                         _P, _P, _L, _P],
-    "chain_tail_am_launch": [_I, _I, _I, _I, _I, _I, _P],
+    "chain_tail_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
     "pfb_fold_max_taps": [],
     "pfb_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "halo_max_shards": [],

@@ -34,9 +34,13 @@
 // is small at tensor-core rates (it took ~1.5 ms as a sliding window on the
 // CUDA cores), and the recurrences are 16128 dependent steps a channel only
 // if they are run as such (one thread a channel: ~2.7 ms). As scans, with
-// the FIR on the tensor cores, the FIR entry takes ~1.25 ms, of which the
-// scans' per-sample arithmetic (sqrt, log, gain law, exp) and the
-// resampler with its 32-byte audio rows are ~0.45 ms each, the FIR ~0.2.
+// the FIR on the tensor cores, the FIR entry takes 1.03-1.05 ms fast,
+// 1.38-1.41 quality (H100 80GB HBM3, 700 W). Copies with a phase compiled
+// out (tools/tail_phases.py) split it: without the resampler 0.74-0.76 ms
+// (the FIR, scans, window and state), the resampler's arithmetic ~0.19 and
+// its 32-byte audio stores ~0.1, which overlap other blocks' FIR and
+// scans. In the 8-channel non-FIR entry (0.71-0.73 ms) the resampler
+// hides under the stores, which cost ~0.27.
 //
 // Design: a block owns 8 channels and 8 warps and walks time in tiles of
 // T ≥ n_taps−1 (FIR) or 256 samples; no block carries anything to another,
@@ -80,14 +84,29 @@
 //  * The resampler runs on all threads and writes time-major audio by
 //    element strides, 8 channels side by side; the 8-channel non-FIR entry
 //    reads its planes by element strides too, so the time-major [n, C]
-//    planes need no transpose pass. Time-major audio rows are 32 bytes
-//    a block, a quarter of a 128-byte line: when the four blocks of a line
-//    drift a tile or more apart, L2 evicts lines partly written, and the
-//    non-FIR entry with time-major audio took 1.19 ms against 0.81 with
-//    chain-major audio at 2560 channels. That entry therefore launches
-//    clusters of four consecutive blocks, which meet at a cluster barrier
-//    once a tile, before they store (0.88 ms). The FIR entry's blocks did
-//    not gain from it and are launched alone.
+//    planes need no transpose pass. It is register-blocked, a thread on 4
+//    consecutive input samples of one channel (tail_resample4): the FIR
+//    entry 1.06-1.09 → 1.03-1.05 ms fast, 1.42-1.43 → 1.38-1.41 quality,
+//    the non-FIR entry 0.755 → 0.71-0.73, with the same sums. Time-major
+//    audio rows are 32 bytes a block, a quarter of a 128-byte line: when
+//    the four blocks of a line drift a tile or more apart, L2 evicts lines
+//    partly written, and the non-FIR entry with time-major audio took 1.19
+//    ms against 0.81 with chain-major audio at 2560 channels. That entry
+//    therefore launches clusters of four consecutive blocks, which meet at
+//    a cluster barrier once a tile, before they store (0.88 ms). The FIR
+//    entry's blocks did not gain from it and are launched alone.
+//  * Not kept: whole 128-byte lines through the cluster. A warp a channel
+//    in the resampler, the four blocks' rows staged in shared memory and
+//    stored a quarter each with 16-byte loads over distributed shared
+//    memory (tools/tail_exchange.patch) is correct and slower: FIR fast
+//    1.31-1.34 ms, quality 2.12-2.13, the non-FIR entry 1.13-1.16. Its
+//    staging alone (no distributed shared memory, block barriers) costs
+//    more than the 32-byte stores it replaces (1.15-1.17 / 1.59-1.68 /
+//    0.96-0.98), the exchange without any global store more still
+//    (1.14-1.17 / 1.94-1.96 / 0.83-0.84). Nor did the non-FIR entry's
+//    stores gain from the tensor memory accelerator (the tile's rows
+//    stored from shared memory asynchronously: 0.73 ms) or a streaming
+//    hint: what they cost is in the memory system, not in issuing them.
 //  * The next tile's input rows are copied asynchronously (cp.async) into
 //    the passband rows' space while the resampler runs, which reads
 //    neither: the FIR entry stages raw rows there (16 bytes a row of 8 bf16
@@ -142,6 +161,7 @@ constexpr int kTile = 32 * kRT;            // 256 samples: the scan piece
 constexpr int kPowN = 12;                  // r^1..r^8, r^16, r^32, r^64, r^128
 constexpr int kGPad = 16;                  // zeros in front of the tap copy
 constexpr int kCluster = 4;  // blocks whose 32-byte audio rows share a line
+constexpr int kRS = 4;       // input samples a thread resamples together
 constexpr float kNegBig = -3.0e38f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -663,71 +683,96 @@ __device__ void tail_scan(const TailArgs& a, const float* pows,
   }
 }
 
-// ×L polyphase resample of the tile in the resample segment; writes audio
-// rows [t0·L, (t0 + tlen)·L). A thread owns one input sample of one channel
-// and its L outputs, so the per samples it reads serve all of them. kL: L at
-// compile time (the accumulators stay in registers), or 0: any L, one
-// output at a time.
-template <int kL>
-__device__ void tail_resample(const TailArgs& a, const Smem& sm, int c0,
-                              int t0, int tlen) {
+// ×4 polyphase resample of the tile in the resample segment; writes audio
+// rows [t0·4, (t0 + tlen)·4), time-major, 8 channels side by side.
+// Register-blocked: a thread owns one channel (lane % 8) and runs of kRS
+// consecutive input samples, so one P row broadcast serves kRS samples and
+// the window slides in registers (21 shared loads for 4 samples' 16
+// outputs, against 72 when a thread owned one sample). Tile sample t =
+// 128·s + 32·g + kRS·w + r goes to lane 8g + c of warp w: a warp's four
+// groups lie 32 samples apart, so with the rows' pad word every 32 samples
+// its window loads hit 32 banks, and its stores are 4 rows of 8 channels
+// (32-byte pieces). Sums over m in the plain version's order.
+__device__ void tail_resample4(const TailArgs& a, const Smem& sm, int c0,
+                               int t0, int tlen) {
   const int tid = threadIdx.x;
-  const int L = kL ? kL : a.L;
+  const int c = tid & (kCB - 1), g = tid >> 3 & 3, w = tid >> 5;
+  if (c0 + c >= a.C) return;
   const int hoff = sm.lay.H - (a.per - 1);
-  // time-major audio: 8 channels side by side (32-byte rows)
+  const float* a1c = sm.a1 + c * sm.lay.S1;
+  float* dst = a.audio + (long)(c0 + c) * a.a_sc;
+  for (int s = 0; s < tlen; s += 4 * 32) {
+    const int n0 = s + 32 * g + kRS * w;
+    float acc[kRS][4], win[kRS];
+#pragma unroll
+    for (int r = 0; r < kRS; ++r) {
+      win[r] = a1c[skew(hoff + n0 + r)];
+      if (a.rs_bf16) win[r] = bf16_round(win[r]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+    }
+    for (int m = 0; m < a.per; ++m) {
+      // one 16-byte broadcast load (P is 16-byte aligned)
+      float4 p4 = reinterpret_cast<const float4*>(sm.ps)[m];
+      if (a.rs_bf16)
+        p4 = make_float4(bf16_round(p4.x), bf16_round(p4.y),
+                         bf16_round(p4.z), bf16_round(p4.w));
+#pragma unroll
+      for (int r = 0; r < kRS; ++r) {
+        acc[r][0] += p4.x * win[r];
+        acc[r][1] += p4.y * win[r];
+        acc[r][2] += p4.z * win[r];
+        acc[r][3] += p4.w * win[r];
+      }
+      if (m + 1 < a.per) {
+#pragma unroll
+        for (int r = 0; r < kRS - 1; ++r) win[r] = win[r + 1];
+        win[kRS - 1] = a1c[skew(hoff + n0 + kRS + m)];
+        if (a.rs_bf16) win[kRS - 1] = bf16_round(win[kRS - 1]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRS; ++r)
+      if (n0 + r < tlen)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          dst[(((long)t0 + n0 + r) * 4 + q) * a.a_st] = acc[r][q];
+  }
+}
+
+// ×L polyphase resample, any L, one output at a time: a thread owns one
+// input sample of one channel and its L outputs.
+__device__ void tail_resample_l(const TailArgs& a, const Smem& sm, int c0,
+                                int t0, int tlen) {
+  const int tid = threadIdx.x, L = a.L;
+  const int hoff = sm.lay.H - (a.per - 1);
   const int c = tid & (kCB - 1);
-  const int n_first = tid >> 3;
   if (c0 + c >= a.C) return;
   const float* a1c = sm.a1 + c * sm.lay.S1;
   float* dst = a.audio + (long)(c0 + c) * a.a_sc;
-  for (int n = n_first; n < tlen; n += 32) {
-    const long o = ((long)t0 + n) * L;
-    if (kL) {
-      float acc[kL ? kL : 1];
-#pragma unroll
-      for (int q = 0; q < kL; ++q) acc[q] = 0.f;
+  for (int n = tid >> 3; n < tlen; n += kThreads / kCB)
+    for (int q = 0; q < L; ++q) {
+      float acc = 0.f;
       for (int m = 0; m < a.per; ++m) {
+        float pm = sm.ps[m * L + q];
         float v = a1c[skew(hoff + n + m)];
-        if (a.rs_bf16) v = bf16_round(v);
-        float pm[kL ? kL : 1];
-        if (kL == 4) {  // one 16-byte broadcast load (P is 16-byte aligned)
-          const float4 p4 = reinterpret_cast<const float4*>(sm.ps)[m];
-          pm[0] = p4.x, pm[1] = p4.y, pm[2] = p4.z, pm[3] = p4.w;
-        } else {
-#pragma unroll
-          for (int q = 0; q < kL; ++q) pm[q] = sm.ps[m * kL + q];
+        if (a.rs_bf16) {
+          pm = bf16_round(pm);
+          v = bf16_round(v);
         }
-#pragma unroll
-        for (int q = 0; q < kL; ++q)
-          acc[q] += (a.rs_bf16 ? bf16_round(pm[q]) : pm[q]) * v;
+        acc += pm * v;
       }
-#pragma unroll
-      for (int q = 0; q < kL; ++q) dst[(o + q) * a.a_st] = acc[q];
-    } else {
-      for (int q = 0; q < L; ++q) {
-        float acc = 0.f;
-        for (int m = 0; m < a.per; ++m) {
-          float pm = sm.ps[m * L + q];
-          float v = a1c[skew(hoff + n + m)];
-          if (a.rs_bf16) {
-            pm = bf16_round(pm);
-            v = bf16_round(v);
-          }
-          acc += pm * v;
-        }
-        dst[(o + q) * a.a_st] = acc;
-      }
+      dst[(((long)t0 + n) * L + q) * a.a_st] = acc;
     }
-  }
 }
 
 __device__ __forceinline__ void tail_resample_any(const TailArgs& a,
                                                   const Smem& sm, int c0,
                                                   int t0, int tlen) {
   if (a.L == 4)
-    tail_resample<4>(a, sm, c0, t0, tlen);
+    tail_resample4(a, sm, c0, t0, tlen);
   else
-    tail_resample<0>(a, sm, c0, t0, tlen);
+    tail_resample_l(a, sm, c0, t0, tlen);
 }
 
 // Σ|y|² of channel sc from its lanes' shares, then its state rows out.
@@ -1083,7 +1128,6 @@ chain_tail_am_kernel(const float* __restrict__ y_re,
 constexpr int kAmWarps = 2;             // channels (warps) a block
 constexpr int kStages = 3;              // input tiles a warp holds
 constexpr int kStageFloats = 2 * kTile;  // 256 interleaved complex samples
-constexpr int kRS = 4;                  // input samples a lane resamples
 
 // Shared memory of the chain-major entry (floats): [per·L] P and [2·kPowN]
 // powers (rounded up to 16 bytes), then for each warp [kStages][512] its
@@ -1250,9 +1294,29 @@ chain_tail_am_c_kernel(const float2* __restrict__ y, long y_sc, int nf,
   finish_channel(a, cr, out, wl.H, c, tlen_prev, accum_pow);
 }
 
-// Launch a tail kernel on `blocks` blocks; a.cluster: in clusters of
+// The launch of a tail kernel on `blocks` blocks; cluster: in clusters of
 // kCluster consecutive blocks (the grid rounded up: a block past the last
 // channel masks everything), which keep step tile by tile.
+struct TailLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  TailLaunch(int blocks, int threads, size_t smem, cudaStream_t stream,
+             bool cluster) {
+    cfg = {};
+    cfg.gridDim = dim3(cluster ? (blocks + kCluster - 1) / kCluster * kCluster
+                               : blocks);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kCluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = cluster ? 1 : 0;
+  }
+};
+
 template <typename... Params, typename... Args>
 cudaError_t launch_tail(void (*kern)(Params...), int blocks, int threads,
                         size_t smem, cudaStream_t stream, bool cluster,
@@ -1260,20 +1324,43 @@ cudaError_t launch_tail(void (*kern)(Params...), int blocks, int threads,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster ? (blocks + kCluster - 1) / kCluster * kCluster
-                             : blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = cluster ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kern, args...);
+  TailLaunch l(blocks, threads, smem, stream, cluster);
+  return cudaLaunchKernelEx(&l.cfg, kern, args...);
+}
+
+// What `kern` launches with: out[0] shared bytes a block, [1] blocks, [2]
+// threads a block, [3] blocks an SM (the occupancy calculator), [4] blocks
+// a cluster, [5] clusters resident at once (0 without clusters), [6]
+// registers a thread, [7] local (stack) bytes a thread.
+template <typename... Params>
+cudaError_t launch_info(void (*kern)(Params...), int blocks, int threads,
+                        size_t smem, bool cluster, long* out) {
+  const TailLaunch l(blocks, threads, smem, nullptr, cluster);
+  int n = 0, nc = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, threads,
+                                                        smem);
+  if (err == cudaSuccess && cluster)
+    err = cudaOccupancyMaxActiveClusters(&nc, kern, &l.cfg);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kern);
+  if (err != cudaSuccess) return err;
+  const long v[8] = {(long)smem, (long)l.cfg.gridDim.x, threads, n,
+                     cluster ? kCluster : 1, nc, fa.numRegs,
+                     (long)fa.localSizeBytes};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return cudaSuccess;
+}
+
+// The FIR entry's shared bytes a block.
+size_t fir_smem(int n_taps, bool fir_bf16, const TailArgs& a) {
+  const int ov = n_taps - 1;
+  const int T = tile_rows(ov);
+  const size_t fir = FirLayout(ov, T, fir_bf16 ? 1 : 2).floats();
+  const Layout lay(a.per, T, a.seg);
+  return (fir + lay.floats(a.per, a.L, a.hang_tiles)) * sizeof(float);
 }
 
 template <bool kCplx, int kDemod, bool kFirBf16>
@@ -1282,12 +1369,7 @@ cudaError_t launch_fir(const void* x_re, const void* x_im, int x_bf16,
                        const float* head_im,
                        const float* h_re, const float* h_im, int n_taps,
                        const TailArgs& a, cudaStream_t stream) {
-  const int ov = n_taps - 1;
-  const int T = tile_rows(ov);
-  const size_t fir = FirLayout(ov, T, kFirBf16 ? 1 : 2).floats();
-  const Layout lay(a.per, T, a.seg);
-  const size_t smem =
-      (fir + lay.floats(a.per, a.L, a.hang_tiles)) * sizeof(float);
+  const size_t smem = fir_smem(n_taps, kFirBf16, a);
   return launch_tail(chain_tail_fir_kernel<kCplx, kDemod, kFirBf16>,
                      n1 * n2 / kCB, kThreads, smem, stream, a.cluster != 0,
                      x_re, x_im, x_bf16, nf, n2, head_re, head_im, h_re,
@@ -1339,6 +1421,23 @@ cudaError_t am_c_attrs(size_t smem) {
   return cudaFuncSetAttribute(chain_tail_am_c_kernel<kDemod>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
+}
+
+template <bool kCplx, bool kFirBf16>
+cudaError_t fir_info(int demod, int blocks, size_t smem, long* out) {
+  switch (demod) {
+    case kAM:
+      return launch_info(chain_tail_fir_kernel<kCplx, kAM, kFirBf16>,
+                         blocks, kThreads, smem, false, out);
+    case kSSB:
+      return launch_info(chain_tail_fir_kernel<kCplx, kSSB, kFirBf16>,
+                         blocks, kThreads, smem, false, out);
+    case kNBFM:
+      return launch_info(chain_tail_fir_kernel<kCplx, kNBFM, kFirBf16>,
+                         blocks, kThreads, smem, false, out);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <int kDemod>
@@ -1461,41 +1560,45 @@ int chain_tail_am_c(const void* y, long y_sc, int nf, int C, const float* P,
   }
 }
 
-// What a non-FIR entry launches for these shapes (chain_major: the
-// chain-major entry, else the 8-channel one): out[0] shared bytes a block,
-// out[1] blocks, out[2] threads a block, out[3] blocks an SM can hold (the
-// occupancy calculator; AM).
-int chain_tail_am_launch(int chain_major, int C, int per, int L, int seg,
-                         int hang_tiles, long* out) {
-  if (per < 2 || L < 1 || seg < 1 || C < 1 || hang_tiles < 0)
+// What an entry launches for C channels, as launch_info: entry 0 the FIR
+// entry (n_taps taps; variant = demod | fir_complex << 2 | fir_bf16 << 3),
+// 1 the 8-channel non-FIR entry (clusters of kCluster), 2 the chain-major
+// one (both AM).
+int chain_tail_launch(int entry, int C, int n_taps, int variant, int per,
+                      int L, int seg, int hang_tiles, long* out) {
+  const TailArgs a{nullptr, per, L, 0, nullptr, seg, hang_tiles, nullptr,
+                   nullptr, C, nullptr, C, 1L, entry == 1};
+  if (!tail_args_ok(a, seg) || (entry == 0 && (n_taps < 2 || C % kCB)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  int n = 0;
-  if (chain_major) {
-    const size_t smem =
-        WarpLayout(per, L, seg, hang_tiles).floats() * sizeof(float);
-    out[0] = (long)smem;
-    out[1] = (C + kAmWarps - 1) / kAmWarps;
-    out[2] = kAmWarps * 32;
-    err = am_c_attrs<kAM>(smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, chain_tail_am_c_kernel<kAM>, kAmWarps * 32, smem);
-  } else {
-    const size_t smem =
-        Layout(per, kTile, seg).floats(per, L, hang_tiles) * sizeof(float);
-    out[0] = (long)smem;
-    out[1] = (C + kCB - 1) / kCB;
-    out[2] = kThreads;
-    err = cudaFuncSetAttribute(chain_tail_am_kernel<kAM>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, chain_tail_am_kernel<kAM>, kThreads, smem);
+  switch (entry) {
+    case 0: {
+      const bool bf16 = variant >> 3 & 1;
+      const size_t smem = fir_smem(n_taps, bf16, a);
+      const int demod = variant & 3, blocks = C / kCB;
+      switch (variant >> 2 & 3) {
+        case 0: return (int)fir_info<false, false>(demod, blocks, smem, out);
+        case 1: return (int)fir_info<true, false>(demod, blocks, smem, out);
+        case 2: return (int)fir_info<false, true>(demod, blocks, smem, out);
+        default: return (int)fir_info<true, true>(demod, blocks, smem, out);
+      }
+    }
+    case 1:
+      return (int)launch_info(
+          chain_tail_am_kernel<kAM>, (C + kCB - 1) / kCB, kThreads,
+          Layout(per, kTile, seg).floats(per, L, hang_tiles) * sizeof(float),
+          true, out);
+    case 2: {
+      const size_t smem =
+          WarpLayout(per, L, seg, hang_tiles).floats() * sizeof(float);
+      const cudaError_t err = am_c_attrs<kAM>(smem);  // its carveout
+      if (err != cudaSuccess) return (int)err;
+      return (int)launch_info(chain_tail_am_c_kernel<kAM>,
+                              (C + kAmWarps - 1) / kAmWarps, kAmWarps * 32,
+                              smem, false, out);
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  out[3] = n;
-  return (int)err;
 }
 
 }  // extern "C"

@@ -22,6 +22,16 @@ and its in-tile doubling scans, so they track the reference's rounding
 closely. Each wrapper runs the plain version for CPU tensors and its
 kernel for CUDA tensors.
 
+Layouts on the card. The two time-major entries (`chain_tail_fir`,
+`chain_tail_am`) run blocks of 8 channels and store the audio's rows 8
+channels (32 bytes) at a time by element strides, any layout; their
+resampler is register-blocked (a thread: one channel, 4 consecutive input
+samples). `chain_tail_am` reads its planes by element strides and launches
+clusters of 4 blocks, which keep step tile by tile so the four 32-byte
+pieces of a 128-byte line are written close together. `chain_tail_am_c`
+reads the complex rows in 16-byte pieces (`wide_rows_ok`), a warp a
+channel, and writes chain-major audio in whole lines.
+
 Parameter vector (9 float32 slots):
   0 AM DC pole r | NBFM scale fs/(2π·max_dev), 1 peak decay per sample (dB),
   2 thresh, 3 slope, 4 target, 5 manual gain, 6 agc on, 7 attack coeff,

@@ -6,7 +6,8 @@ one card, in turns, to compare versions inside one run.
 Each TREE is a directory that holds `supersdr_tpu_torch/` and
 `chip_smoke.py` (the repository root itself, or a copy of both made under a
 git-ignored directory and edited there: an earlier version, or one with a
-phase of a kernel compiled out to see what the phase costs). All trees
+phase of a kernel compiled out to see what the phase costs;
+`tail_phases.py` makes such copies of the chain tails). All trees
 build first, in parallel, each into its own `supersdr_tpu_torch/build/`;
 then each tree's kernels are timed in its own process, first in the order
 given and then in reverse (A B B A), so a drift of the card shows. Shapes,
