@@ -131,7 +131,15 @@ Phases, each printed as it runs; any failure exits non-zero:
  15. device tracing (`trace`): `utils.profiling.trace` around one
      `process_n` call at HEADLINE; the written Chrome trace names the
      channelizer and FIR-tail kernels; the traced call's time beside an
-     untraced one.
+     untraced one;
+ 16. the port's benchmark (`bench`, run after phase 4's timing):
+     `supersdr_tpu_torch.bench.results` in this process, the measurement
+     `cli bench` prints, both tiers at HEADLINE: its four oracle gates
+     (each ≥ 50 dB, the MID gates' fixture rows against the JAX package's
+     audio too), int16 ingest against the dequantized chunk (> 80
+     dB), no error entry, both kernels' launches moved; its JSON line and
+     seconds, and its ms a chunk beside phase 4's for the same call;
+     the card's idle share in the bench's own loop, profiled.
 Each kernel's line in the JSON summary carries its launches on the main
 paths, its time, its plain version's, its bound on this card (bytes over
 3.35 TB/s against operations over the peak rate of their type) and, where
@@ -3196,6 +3204,63 @@ def _trace_kernels(path: str) -> dict:
     return names
 
 
+BENCH_GATES = ("small", "mid", "midssb", "midnbfm")
+# the gates whose rows are also held against the JAX package's fixture
+BENCH_JAX_GATES = ("mid", "midssb", "midnbfm")
+
+
+def phase_bench(device) -> dict:
+    """`cli bench`'s measurement, both tiers at HEADLINE, in this process;
+    fails on a gate under 50 dB, int16 at or under 80 dB against float32,
+    an error entry, integrity not "pass", or a kernel that did not
+    launch."""
+    from supersdr_tpu_torch import bench
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = bench.results(device)
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    print(json.dumps(out), flush=True)
+    print(f"bench: {seconds:.1f} s, launches {launches}", flush=True)
+    other = "quality" if out["profile"] == "fast" else "fast"
+    tiers = {out["profile"]: out, other: out.get(other, {})}
+    for name, tier in tiers.items():
+        i16 = tier.get("i16_ingest", {})
+        low = [g for g in BENCH_GATES
+               if not tier.get(f"oracle_snr_db_{g}", 0.0) >= 50.0]
+        low += [f"{g} (jax rows)" for g in BENCH_JAX_GATES
+                if not tier.get(f"jax_snr_db_{g}", 0.0) >= 50.0]
+        if "error" in tier or "error" in i16 \
+                or tier.get("integrity") != "pass" \
+                or not tier.get("value", 0.0) > 0 or low \
+                or not i16.get("vs_f32_snr_db", 0.0) > 80.0:
+            raise AssertionError(f"bench {name} failed (gates under 50 dB: "
+                                 f"{low})")
+    if not (launches["channelize_fused"] and launches["chain_tail"]):
+        raise AssertionError(f"bench launched no kernel: {launches}")
+    for tier in ("fast", "quality"):
+        bench_loop_share(device, tier)
+    return {"launches": launches, "out": out}
+
+
+def bench_loop_share(device, tier: str, steps: int = 8) -> None:
+    """The card's idle share in the bench's own timed loop: `steps` of its
+    step back to back, one reduction of the last audio read at the end."""
+    from supersdr_tpu_torch import bench
+    from supersdr_tpu_torch.runtime import wideband as wb
+    cfg = wb.WidebandConfig(**bench.HEADLINE, **wb.PROFILES[tier])
+    params = wb.make_params(cfg, device=device)
+    st = [wb.init_state(cfg, device=device)]
+    step, _ = bench.timed_step(cfg, params, device)
+
+    def loop():
+        for _ in range(steps):
+            st[0], audio = step(st[0])
+        return float(audio.abs().mean())
+    device_share(f"bench loop {tier} ({steps} steps of {bench.N_SCAN} "
+                 f"chunks, one reduction)", loop, calls=2, rows=6)
+
+
 def phase_trace(device, tmp: str, seed: int = 25) -> dict:
     """`utils.profiling.trace` around one `process_n` call (2 chunks) at
     HEADLINE fast: the written trace names the channelizer and the FIR
@@ -3387,6 +3452,17 @@ def main() -> int:
     planar_ms = {p: times[f"main_{p}_f32"] for p in ("fast", "quality")}
     del main_path["runs"], chan["chunks"]
     torch.cuda.empty_cache()
+    bench_run = phase_bench(dev)
+    for tier in ("fast", "quality"):
+        res = bench_run["out"] if tier == bench_run["out"]["profile"] \
+            else bench_run["out"][tier]
+        per_chunk = res["step_ms"] / bench_run["out"]["config"]["n_scan"]
+        gap = per_chunk / times[f"main_{tier}_f32"] - 1.0
+        print(f"bench {tier}: step_ms {res['step_ms']} ({per_chunk:.3f} ms "
+              f"a chunk, host clock), main_{tier}_f32 "
+              f"{times[f'main_{tier}_f32']:.3f} ms a chunk (CUDA events): "
+              f"{100 * gap:+.1f} %", flush=True)
+    torch.cuda.empty_cache()
     phase_rows(HEADLINE, dev)
     phase_rows(HEADLINE, dev, CHANMAJOR)
     phase_controls(HEADLINE, dev)
@@ -3419,7 +3495,8 @@ def main() -> int:
              **cli_runs, "session": session, "monitor": monitor["monitor"],
              "monitor_i16": monitor["monitor_i16"],
              "monitor_mesh": monitor["monitor_mesh"], "live": live,
-             "checkpoint": checkpoint, "trace": traced, **procs["paths"]}
+             "checkpoint": checkpoint, "trace": traced, "bench": bench_run,
+             **procs["paths"]}
     bounds = kernel_bounds(times["halo_bound"])
     kernels = [
         _summary("channelize_fused", "channelize_fused.cu",

@@ -15,13 +15,16 @@ with the mesh forms of the scans, the demodulators and the AGC; the
 sharded wideband pipeline; each in one process or with its time shards
 split over processes on one card) on five hand-written kernels; and the user's
 entry points on them: the CLI (`python -m supersdr_tpu_torch.cli demod |
-waterfall | wideband | kiwi`), the live KiwiSDR session, the receiver
-controller, dual RX, the spectrum/waterfall ops and the ADPCM codec. What
-it does not run yet raises `NotImplementedError` naming the ROADMAP item
-that will bring it. It imports nothing of the JAX package: the
-framework-free modules it shares with it (`ops/firdesign`, `ops/passband`,
-`io/`, `display/`, parts of `control/` and `runtime/`, `native`) are
-carried over as copies.
+waterfall | wideband | kiwi | tui | monitor | bench`), the live KiwiSDR
+session and terminal panadapter, the receiver controller, dual RX, the
+spectrum/waterfall ops, the ADPCM codec and the self-validating benchmark
+(`bench`). What it does not run yet raises `NotImplementedError` naming
+the ROADMAP item that will bring it. It imports nothing of the JAX
+package: the framework-free modules it shares with it (`ops/firdesign`,
+`ops/passband`, `io/`, `display/`, parts of `control/` and `runtime/`,
+`native`) are carried over as copies, and so is its data (`data/`).
 """
 
-__all__: list[str] = []
+from supersdr_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

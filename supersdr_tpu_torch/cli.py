@@ -16,12 +16,14 @@ for the rigctld CAT radio):
   tui        terminal panadapter over a recorded IQ WAV
   monitor    wideband monitor: the channelized band's RSSI and activity,
              select a channel to record
+  bench      the self-validating single-card throughput benchmark
+             (`supersdr_tpu_torch.bench`): oracle gates, then input
+             Msamples/s at the headline shape on both tuning profiles
 
 plus `--device`: the computing subcommands run on the current CUDA device
 unless given another (`--device cpu` runs the plain versions on the CPU);
-with no card and no `--device` they raise. `bench` is not ported yet and
-raises `NotImplementedError` naming its ROADMAP item. `wideband` also
-prints how many trailing samples (less than one chunk) it did not process.
+with no card and no `--device` they raise. `wideband` also prints how
+many trailing samples (less than one chunk) it did not process.
 """
 
 from __future__ import annotations
@@ -179,8 +181,8 @@ def build_parser() -> argparse.ArgumentParser:
     mo.add_argument("-f", "--freq", type=float, default=10000.0)
     _add_device(mo)
 
-    sub.add_parser("bench", help="run the single-chip benchmark; not "
-                                 "ported yet")
+    bn = sub.add_parser("bench", help="run the single-chip benchmark")
+    _add_device(bn)
     return ap
 
 
@@ -328,8 +330,9 @@ def cmd_kiwi(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise NotImplementedError(
-        "bench: the port has no benchmark yet (ROADMAP queue 1 #11)")
+    from supersdr_tpu_torch import bench
+
+    return bench.main(args.device)
 
 
 def cmd_monitor(args) -> int:

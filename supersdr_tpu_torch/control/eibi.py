@@ -12,16 +12,14 @@ from datetime import datetime, timezone
 from pathlib import Path
 
 
-# the reference package's data file, read by path (not imported)
-DEFAULT_EIBI_PATH = (Path(__file__).resolve().parents[2] / "supersdr_tpu"
-                     / "data" / "eibi.csv")
+DEFAULT_EIBI_PATH = Path(__file__).parent.parent / "data" / "eibi.csv"
 
 
 class EibiDb:
     def __init__(self, path: str | Path | None = None):
         """Load `eibi.csv`; with no path, try ./eibi.csv then the copy
-        shipped in supersdr_tpu/data/ (public EIBI schedule data, as the
-        reference ships it in its repo root)."""
+        shipped in supersdr_tpu_torch/data/ (public EIBI schedule data,
+        as the reference ships it in its repo root)."""
         self.station_dict: dict[float, list[list[str]]] = defaultdict(list)
         self.int_freq_dict: dict[int, list[float]] = defaultdict(list)
         self.visible_stations: list[float] = []

@@ -120,6 +120,14 @@ def channelize_c(plan: PFBPlan, W: torch.Tensor, carry: torch.Tensor,
     return seg[..., -plan.history:], spec.transpose(-1, -2)
 
 
+def channelize(plan: PFBPlan, W: torch.Tensor, carry, x
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`channelize_c` on CX, complex or real carry and x (numpy or
+    tensors), moved to W's device; returns complex64 tensors there."""
+    return channelize_c(plan, W, cx.as_complex(carry, W.device),
+                        cx.as_complex(x, W.device))
+
+
 def mxu2_supported(M: int) -> bool:
     return M <= MAX_DIRECT or _pick_factors(M) is not None
 

@@ -59,3 +59,9 @@ def as_cx(x, device=None) -> CX:
         re, im = re.to(device), im.to(device)
     return CX(re.to(torch.float32).contiguous(),
               im.to(torch.float32).contiguous())
+
+
+def as_complex(x, device=None) -> torch.Tensor:
+    """Coerce as `as_cx` does, to one complex64 tensor on `device`."""
+    z = as_cx(x, device)
+    return torch.complex(z.re, z.im)

@@ -134,6 +134,15 @@ def fir_matmul_stream_c(plan: FIRMatmulPlan, W: torch.Tensor, carry: cx.CX,
     return _new_carry(plan, carry, x), cx.CX(yr, yi)
 
 
+def fir_matmul_stream(plan: FIRMatmulPlan, W: torch.Tensor, carry, x
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`fir_matmul_stream_c` on CX, complex or real carry and x (numpy or
+    tensors), moved to W's device; returns complex64 tensors there."""
+    c, y = fir_matmul_stream_c(plan, W, cx.as_cx(carry, W.device),
+                               cx.as_cx(x, W.device))
+    return torch.complex(c.re, c.im), torch.complex(y.re, y.im)
+
+
 def fir_matmul_stream_tmajor_c(plan: FIRMatmulPlan, W: torch.Tensor,
                                carry_T: cx.CX, xT: cx.CX
                                ) -> tuple[cx.CX, cx.CX]:

@@ -15,6 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from supersdr_tpu_torch.device import default_device
 from supersdr_tpu_torch.ops import cx, firdesign
 
 
@@ -83,3 +84,52 @@ def overlap_save_batch_c(plan: OSPlan, H: torch.Tensor, head: torch.Tensor,
     X = torch.fft.fft(segs, n=plan.fft_size, dim=-1)
     y = torch.fft.ifft(X * H, dim=-1)
     return y[..., ov: ov + plan.block]
+
+
+def overlap_save_c(plan: OSPlan, H: torch.Tensor, carry: torch.Tensor,
+                   x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One streaming step on complex tensors: carry [*batch, n_taps−1],
+    x [*batch, block] (real input is promoted) → (new carry, y [*batch,
+    block]) with y = convolve(carry ‖ x, taps, "valid")."""
+    y = overlap_save_batch_c(plan, H, carry, x[..., None, :])[..., 0, :]
+    seg = torch.cat([carry.to(torch.complex64), x.to(torch.complex64)],
+                    dim=-1)
+    return seg[..., seg.shape[-1] - plan.overlap:], y
+
+
+def overlap_save(plan: OSPlan, H, carry, x
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`overlap_save_c` on CX, complex or real inputs (numpy or tensors),
+    moved to the device of H; returns complex64 tensors there."""
+    H = cx.as_complex(H)
+    return overlap_save_c(plan, H, cx.as_complex(carry, H.device),
+                          cx.as_complex(x, H.device))
+
+
+def overlap_save_batch(plan: OSPlan, H, head, x) -> torch.Tensor:
+    """`overlap_save_batch_c` on CX, complex or real inputs, moved to the
+    device of H; returns y [*batch, n_blocks, block] complex64 there."""
+    H = cx.as_complex(H)
+    return overlap_save_batch_c(plan, H, cx.as_complex(head, H.device),
+                                cx.as_complex(x, H.device))
+
+
+def filter_signal(taps: np.ndarray, x, block: int = 4096,
+                  device=None) -> np.ndarray:
+    """Host convenience: a whole signal [..., n] through overlap-save on
+    `device` (None: the card) from a zero history; as long as the input,
+    the first n_taps−1 outputs seeing zeros before it. Returns numpy, real
+    when taps and input are both real."""
+    device = default_device(device)
+    x_np = np.asarray(x)
+    want_real = (not np.iscomplexobj(np.asarray(taps))
+                 and not np.iscomplexobj(x_np))
+    n = x_np.shape[-1]
+    plan = plan_for(block, len(taps))
+    H = taps_to_freq(plan, taps, device)
+    xp = np.pad(x_np, [(0, 0)] * (x_np.ndim - 1) + [(0, (-n) % block)])
+    blocks = xp.reshape(*x_np.shape[:-1], -1, block)
+    head = init_carry(plan, x_np.shape[:-1], device)
+    y = overlap_save_batch(plan, H, head, blocks)
+    out = y.reshape(*x_np.shape[:-1], -1)[..., :n].cpu().numpy()
+    return out.real if want_real else out

@@ -8,8 +8,9 @@ Counterpart of `supersdr_tpu/ops/scans.py`:
 
 Both compose associatively, so a log-depth doubling scan evaluates them
 exactly up to float rounding; the time-constant forms use the reference's
-blocked Toeplitz product and its single cumulative max (`torch.cummax`
-stands for the reference's `blocked_cummax`, a TPU memory-pass saving).
+blocked Toeplitz product and its single cumulative max (`blocked_cummax`,
+one `torch.cummax`: the reference's two-level blocking is a TPU
+memory-pass saving).
 
 Every scan also runs across a time-sharded axis, where the reference takes
 `axis_name` inside `shard_map`: with `shard_axis=-2` the input is `[*batch,
@@ -150,13 +151,21 @@ def maxplus_scan(a, b: torch.Tensor, y0, shard_axis: int | None = None,
     return torch.maximum(A + _align_y0(y0, b), B)
 
 
+def blocked_cummax(s: torch.Tensor) -> torch.Tensor:
+    """Cumulative max along the last axis: `torch.cummax`'s values. The
+    reference blocks it in two levels because XLA lowers a long cummax to
+    ~log2(n) full-array passes on the TPU; a workaround the port does not
+    need."""
+    return torch.cummax(s, dim=-1).values
+
+
 def maxplus_scan_const(a, b: torch.Tensor, y0) -> torch.Tensor:
     """`maxplus_scan` with a time-constant step: with s[j] = b[j] − j·a,
     y[n] = n·a + max(cummax(s)[n], y0 + a)."""
     n = b.shape[-1]
     j = torch.arange(n, dtype=b.dtype, device=b.device)
     a = _as_tensor(a, b)
-    cm = torch.cummax(b - j * a, dim=-1).values
+    cm = blocked_cummax(b - j * a)
     y0b = _as_tensor(y0, b)
     if y0b.ndim < b.ndim:
         y0b = y0b[..., None]

@@ -18,6 +18,7 @@ Tolerances:
   tests/test_cli_apps.py asserts of the reference's session.
 """
 
+import json
 import re
 import zlib
 from pathlib import Path
@@ -331,7 +332,7 @@ def test_live_kiwi_session_at_20k25(tmp_path):
 @pytest.mark.parametrize("argv", [
     ["demod", "x.wav"], ["waterfall", "x.wav"], ["wideband", "x.wav"],
     ["kiwi", "-s", "127.0.0.1"], ["kiwi", "-s", "127.0.0.1", "--tui"],
-    ["tui", "x.wav"], ["monitor", "x.wav"], ["monitor"]])
+    ["tui", "x.wav"], ["monitor", "x.wav"], ["monitor"], ["bench"]])
 def test_cli_raises_without_a_card(argv, monkeypatch):
     """With no card and no --device the CLI raises before any work (the
     input file does not exist: nothing is read)."""
@@ -340,10 +341,22 @@ def test_cli_raises_without_a_card(argv, monkeypatch):
         tcli.main(argv)
 
 
-@pytest.mark.parametrize("argv,item", [(["bench"], "#11")])
-def test_unported_subcommands_name_their_roadmap_item(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.main(argv)
+def test_bench_reaches_the_benchmark_with_the_device(monkeypatch, capsys):
+    """`cli bench --device cpu` runs `bench.main` on that device: the
+    measurement (stubbed here) gets the CPU and the headline shape, and
+    the printed line carries the device."""
+    from supersdr_tpu_torch import bench
+    seen = []
+
+    def fake_measure(tuning, device, headline, refs):
+        seen.append((device, headline))
+        return {"value": 1.0, "integrity": "pass"}
+    monkeypatch.setattr(bench, "measure", fake_measure)
+    assert tcli.main(["bench", "--device", "cpu"]) == 0
+    assert seen == [(torch.device("cpu"), bench.HEADLINE)] * 2
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["device"] == {"name": "cpu", "power_limit": None}
+    assert line["quality"]["value"] == 1.0
 
 
 _SGR = re.compile(r"\x1b\[48;5;(\d+)m")

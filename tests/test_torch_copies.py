@@ -66,15 +66,13 @@ CHANGES = {
          'subprocess.SubprocessError):\n        return False\n    '
          'finally:\n        tmp.unlink(missing_ok=True)\n'),
     ],
-    # the EIBI schedule stays one file: the reference package's data,
-    # read by path (no import)
+    # the port ships its own copy of the EIBI schedule (data/eibi.csv,
+    # byte-equal to the reference's), which the docstring names
     "control/eibi": [
-        ('DEFAULT_EIBI_PATH = Path(__file__).parent.parent / "data" / '
-         '"eibi.csv"',
-         '# the reference package\'s data file, read by path (not '
-         'imported)\nDEFAULT_EIBI_PATH = (Path(__file__).resolve().'
-         'parents[2] / "supersdr_tpu"\n                     / "data" / '
-         '"eibi.csv")'),
+        ("shipped in supersdr_tpu/data/ (public EIBI schedule data, as the"
+         "\n        reference ships it in its repo root)",
+         "shipped in supersdr_tpu_torch/data/ (public EIBI schedule data,"
+         "\n        as the reference ships it in its repo root)"),
     ],
 }
 
@@ -91,11 +89,27 @@ def test_copy_equals_the_reference(module):
 
 
 def test_eibi_reads_the_reference_data_file():
+    """The port reads its own copy of the reference's data file."""
     from supersdr_tpu_torch.control import eibi
-    assert eibi.DEFAULT_EIBI_PATH == \
-        REPO / "supersdr_tpu" / "data" / "eibi.csv"
+    assert eibi.DEFAULT_EIBI_PATH.resolve() == \
+        REPO / "supersdr_tpu_torch" / "data" / "eibi.csv"
     db = eibi.EibiDb(eibi.DEFAULT_EIBI_PATH)
     assert db.loaded and len(db.station_dict) > 1000
+
+
+def test_eibi_data_is_the_reference_file_byte_for_byte():
+    ref = (REPO / "supersdr_tpu" / "data" / "eibi.csv").read_bytes()
+    port = (REPO / "supersdr_tpu_torch" / "data" / "eibi.csv").read_bytes()
+    assert port == ref
+
+
+def test_version_is_the_reference_version():
+    import supersdr_tpu
+    import supersdr_tpu_torch
+    from supersdr_tpu_torch import version
+    assert supersdr_tpu_torch.__version__ == version.__version__ \
+        == supersdr_tpu.__version__
+    assert "__version__" in supersdr_tpu_torch.__all__
 
 
 def test_native_builds_into_the_port_build_dir():

@@ -64,7 +64,8 @@ FIXTURE = str(REPO / "tests" / "fixtures" / "kiwi_am_offair_12k.wav")
     "supersdr_tpu_torch.control.logbook",
     "supersdr_tpu_torch.control.dxcluster",
     "supersdr_tpu_torch.control.kiwilist", "supersdr_tpu_torch.control.qrz",
-    "supersdr_tpu_torch.io.gnss"])
+    "supersdr_tpu_torch.io.gnss", "supersdr_tpu_torch.bench",
+    "supersdr_tpu_torch.version"])
 def test_imports_without_jax(module):
     """Nothing of JAX, and nothing of the JAX package either."""
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
