@@ -51,6 +51,17 @@ Phases, each printed as it runs; any failure exits non-zero:
      the CPU; the non-FIR tail as `chain.process` runs it on 128 and 2560
      receivers × 2048 (against its plain version, timed, with its grid,
      and the call's ms);
+  6b. the reference's channelizer and passband variants (`variants`):
+     each chan-major `chan_impl` route (`stub`, `nofft`, `mxu2`, `mxu2`
+     with a float16 fold, `mxu2conv`, `mxu2pallas`, `dit`, `legacy` with
+     `mxu_chan_fft`) at MID behind the tail kernel against the same
+     config on the CPU (`stub` also bit for bit at the channelizer;
+     `mxu2pallas` one fold launch a chunk); `passband_impl="fftmxu"`
+     through `chain.process` on 128 receivers and through `sharded_chain`
+     (the halo kernel), against the CPU; the off-air fixture through
+     `cli demod --mode AM --agc-off` against the reference's scipy oracle
+     (≥ 40 dB); each route's ms a chunk at HEADLINE beside CHANMAJOR's,
+     with the card's name and power limit;
   7. the sharded receiver chain (SHARDED: `parallel.sharded_chain.build` on
      8 receivers × 8 time shards of 131072 samples, AM with the matmul
      passband, and on a 2 × 4 chan × time grid, USB with the fft passband;
@@ -1169,6 +1180,201 @@ def phase_chain(device, seed: int = 6) -> None:
         raise AssertionError("chan-major mxu2fused missed a kernel")
     _close_to_cpu("chan-major mxu2fused MID", res["card"][0],
                   res["cpu"][0], tol)
+
+
+# the reference's chan-major channelizer variants (`chan_impl`,
+# `chan_fold_dtype`, `chan_fft_form`, `mxu_chan_fft`), each behind the
+# non-FIR tail kernel
+VARIANT_ROUTES = {
+    "stub": dict(chan_impl="stub"),
+    "nofft": dict(chan_impl="nofft"),
+    "mxu2": dict(chan_impl="mxu2"),
+    "mxu2_f16": dict(chan_impl="mxu2", chan_fold_dtype="f16"),
+    "mxu2conv": dict(chan_impl="mxu2conv"),
+    "mxu2pallas": dict(chan_impl="mxu2pallas"),
+    "dit": dict(chan_impl="mxu2", chan_fft_form="dit"),
+    "legacy_mxu_fft": dict(chan_impl="legacy", mxu_chan_fft=True),
+}
+# the reference's one-row matrix-product overlap-save passband
+FFTMXU = dict(mode="AM", iq_rate=12_000, audio_rate=48_000, chunk=2048,
+              os_block=2048, n_taps=257, passband_impl="fftmxu",
+              tail_impl="pallas")
+FIXTURE = "tests/fixtures/kiwi_am_offair_12k.wav"
+# the reference's off-air acceptance bound against its scipy oracle
+OFFAIR_ORACLE_DB = 40.0
+
+
+def _offair_oracle_db(audio: np.ndarray, z: np.ndarray, fs: int = 12_000
+                      ) -> float:
+    """The reference's off-air acceptance check (its
+    tests/test_offair_fixture.py): a scipy oracle of the documented AM
+    semantics (firwin lowpass, envelope, the one-pole DC blocker at
+    0.999), lifted to 48 kHz by the port's interpolator, against the audio
+    at the best lag within ±64 samples, past the first second."""
+    import scipy.signal as sps
+    from supersdr_tpu_torch.ops import resample
+    y = sps.lfilter(sps.firwin(513, 5900, fs=fs), 1.0, z)
+    ref12 = sps.lfilter([1.0, -1.0], [1.0, -0.999], np.abs(y))
+    plan, P = resample.design_interp(fs, 4 * fs)
+    ref = resample.interpolate(
+        plan, torch.from_numpy(np.asarray(P, np.float32)),
+        resample.init_carry(plan, device="cpu"),
+        torch.from_numpy(np.asarray(ref12, np.float32)))[1].numpy()
+    n = min(len(audio), len(ref))
+    a, b = np.asarray(audio[:n], np.float64), ref[:n].astype(np.float64)
+    best = -np.inf
+    for lag in range(-64, 65):
+        aa = a[max(lag, 0): n + min(lag, 0)][48000:-4000]
+        bb = b[max(-lag, 0): n - max(lag, 0)][48000:-4000]
+        aa, bb = aa - aa.mean(), bb - bb.mean()
+        g = np.dot(aa, bb) / max(np.dot(bb, bb), 1e-30)
+        err = aa - g * bb
+        best = max(best, 10 * np.log10(np.dot(g * bb, g * bb)
+                                       / max(np.dot(err, err), 1e-30)))
+    return best
+
+
+def phase_variants(device, tmp: str, iters: int = 5, seed: int = 41
+                   ) -> dict:
+    """The reference's channelizer and passband variants on the card
+    (`variants`). Each chan-major route of VARIANT_ROUTES at MID with the
+    tail kernel, two chained chunks, against the same config on the CPU
+    (TOL_SNR_DB["cpu"]; "stub" also bit for bit at the channelizer): one
+    `chain_tail_am_c` launch a chunk, and `mxu2pallas` one fold launch a
+    chunk. `fftmxu` through `chain.process` on 128 receivers × 2048 (the
+    tail kernel) and through `sharded_chain` on 8 receivers × 8 time
+    shards (the halo kernel: AM exchanges 3 halos a call), each against
+    the CPU. The off-air fixture through `cli demod --mode AM --agc-off`
+    on the card against the reference's scipy oracle (≥
+    OFFAIR_ORACLE_DB). Then each route's ms a chunk at HEADLINE beside
+    CHANMAJOR's, with the card's name and power limit."""
+    from supersdr_tpu_torch.io import wav
+    from supersdr_tpu_torch.ops import cx
+    from supersdr_tpu_torch.parallel import mesh, sharded_chain
+    from supersdr_tpu_torch.runtime import chain
+    from supersdr_tpu_torch.runtime import wideband as wb
+    cpu = torch.device("cpu")
+    tol = TOL_SNR_DB["cpu"]
+    rng = np.random.default_rng(seed)
+    n = MID["chunk_in"]
+    x = [((rng.normal(size=n) + 1j * rng.normal(size=n)) * 0.05
+          ).astype(np.complex64) for _ in range(2)]
+    none = {k: 0 for k in _wrappers()}
+    total = dict(none)
+
+    def check(label, launches, want):
+        print(f"variants {label}: launches {launches}", flush=True)
+        if launches != {**none, **want}:
+            raise AssertionError(f"variants {label}: launches {launches}, "
+                                 f"want {want}")
+        for k, v in launches.items():
+            total[k] += v
+    for name, kw in VARIANT_ROUTES.items():
+        cfg = wb.WidebandConfig(**{**MID, "tail_impl": "pallas", **kw})
+        res = {}
+        for key, dev in (("card", device), ("cpu", cpu)):
+            p = wb.make_params(cfg, device=dev)
+            _reset_counts()
+            _, outs = wb.process_n(cfg, p, wb.init_state(cfg, device=dev),
+                                   x)
+            _sync(dev)
+            res[key] = (torch.cat(outs, dim=-1).cpu().numpy(), _counts())
+        want = {"chain_tail_am_c": len(x)}
+        if name == "mxu2pallas":
+            want["pfb_fold"] = len(x)
+        check(f"{name} MID", res["card"][1], want)
+        _close_to_cpu(f"variants {name} MID", res["card"][0], res["cpu"][0],
+                      tol)
+    cfg = wb.WidebandConfig(**{**MID, **VARIANT_ROUTES["stub"]})
+    plan = wb.pfb_plan(cfg)
+    carry = cx.as_cx(x[1][:plan.history], device=cpu)
+    got, ref = (wb.channelize_dispatch(
+        cfg, wb.make_params(cfg, device=dev),
+        cx.CX(*(t.to(dev) for t in carry)), cx.as_cx(x[0], device=dev))
+        for dev in (device, cpu))
+    exact = torch.equal(got[1].cpu(), ref[1]) \
+        and torch.equal(got[0].re.cpu(), ref[0].re)
+    print(f"variants stub channelizer: card and CPU bit for bit {exact}",
+          flush=True)
+    if not exact:
+        raise AssertionError("variants stub: the channelizer differs")
+    # fftmxu: chain.process on 128 receivers, two chained chunks
+    ccfg = chain.ChainConfig(**FFTMXU)
+    offs = np.linspace(-300.0, 300.0, 128)
+    iq = _sharded_iq(128, 2 * ccfg.chunk, ccfg.iq_rate, seed)
+    res = {}
+    for key, dev in (("card", device), ("cpu", cpu)):
+        p = chain.make_params(ccfg, freq_offset_hz=offs, device=dev)
+        st = chain.init_state(ccfg, (128,), device=dev)
+        _reset_counts()
+        outs = []
+        for k in range(2):
+            st, out = chain.process(ccfg, p, st,
+                                    iq[:, k * ccfg.chunk:(k + 1) * ccfg.chunk])
+            outs.append(out.audio)
+        _sync(dev)
+        res[key] = (torch.cat(outs, dim=-1).cpu().numpy(), _counts())
+    check("fftmxu chain.process 128 receivers", res["card"][1],
+          {"chain_tail_am_c": 2})
+    _close_to_cpu("variants fftmxu chain.process 128 receivers",
+                  res["card"][0], res["cpu"][0], tol)
+    # fftmxu: the sharded chain, the halo kernel
+    scfg = chain.ChainConfig(**dict(FFTMXU, chunk=16384, os_block=16384,
+                                    tail_impl="xla"))
+    offs = np.linspace(-300.0, 300.0, SHARDED_RX)
+    ncall = scfg.chunk * SHARDED_D
+    iq = _sharded_iq(SHARDED_RX, 2 * ncall, scfg.iq_rate, seed + 1)
+    res = {}
+    for key, dev in (("card", device), ("cpu", cpu)):
+        proc = sharded_chain.build(scfg, mesh.make_mesh(1, SHARDED_D,
+                                                        device=dev))
+        p = sharded_chain.make_params(scfg, SHARDED_RX, offs, device=dev)
+        st = sharded_chain.init_state(scfg, SHARDED_RX, device=dev)
+        _reset_counts()
+        outs = []
+        for k in range(2):
+            st, out = proc(p, st, iq[:, k * ncall:(k + 1) * ncall])
+            outs.append(out.audio)
+        _sync(dev)
+        res[key] = (torch.cat(outs, dim=-1).cpu().numpy(), _counts())
+    check(f"fftmxu sharded_chain {SHARDED_RX}x(1x{SHARDED_D})",
+          res["card"][1], {"halo": 3 * 2})
+    _close_to_cpu(f"variants fftmxu sharded_chain {SHARDED_RX}x(1x"
+                  f"{SHARDED_D})", res["card"][0], res["cpu"][0], tol)
+    # the off-air fixture through the user's command, on the card
+    out = os.path.join(tmp, "offair_am.wav")
+    _cli(["demod", FIXTURE, "-o", out, "--mode", "AM", "--agc-off"])
+    audio, rate = wav.read_audio_wav(out)
+    snr = _offair_oracle_db(np.asarray(audio).reshape(-1),
+                            wav.read_kiwi_iq_wav(FIXTURE)[1])
+    print(f"variants cli demod AM off-air fixture: {snr:.2f} dB against "
+          f"the scipy oracle (tol {OFFAIR_ORACLE_DB} dB), {rate} Hz",
+          flush=True)
+    if not snr >= OFFAIR_ORACLE_DB:
+        raise AssertionError("the off-air fixture misses the oracle")
+    # each route's ms a chunk at HEADLINE beside CHANMAJOR's
+    gen = torch.Generator(device=device).manual_seed(seed)
+    chunks = [cx.CX(*(torch.randn(HEADLINE["chunk_in"], generator=gen,
+                                  device=device) * 0.05 for _ in range(2)))
+              for _ in range(2)]
+    smi = _nvidia_smi()
+    times = {}
+    for name, kw in (("chanmajor", CHANMAJOR), *VARIANT_ROUTES.items()):
+        cfg = wb.WidebandConfig(**{**HEADLINE, "tail_impl": "pallas", **kw})
+        p = wb.make_params(cfg, device=device)
+        st = [wb.init_state(cfg, device=device)]
+
+        def step():
+            st[0], outs = wb.process_n(cfg, p, st[0], chunks)
+            return outs[-1].abs().mean()
+        ms = cuda_ms(step, iters) / len(chunks)
+        times[f"variant_{name}"] = ms
+        print(f"time variants {name} HEADLINE: {ms:.3f} ms/chunk, "
+              f"{cfg.chunk_in / (ms * 1e-3) / 1e6:.1f} Msamples/s input "
+              f"({smi})", flush=True)
+        del p, st
+    torch.cuda.empty_cache()
+    return {"launches": total, "times": times}
 
 
 TAIL_ENTRIES = {"chain_tail": 0, "chain_tail_am": 1, "chain_tail_am_c": 2}
@@ -3467,6 +3673,9 @@ def main() -> int:
     phase_rows(HEADLINE, dev, CHANMAJOR)
     phase_controls(HEADLINE, dev)
     phase_chain(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        variants = phase_variants(dev, tmp)
+    times.update(variants["times"])
     times.update(phase_am_batch(dev, err))
     times.update(phase_halo_timing(dev))
     sharded = phase_sharded(dev)
@@ -3496,6 +3705,7 @@ def main() -> int:
              "monitor_i16": monitor["monitor_i16"],
              "monitor_mesh": monitor["monitor_mesh"], "live": live,
              "checkpoint": checkpoint, "trace": traced, "bench": bench_run,
+             "variants": variants,
              **procs["paths"]}
     bounds = kernel_bounds(times["halo_bound"])
     kernels = [

@@ -18,8 +18,9 @@ entry points on them: the CLI (`python -m supersdr_tpu_torch.cli demod |
 waterfall | wideband | kiwi | tui | monitor | bench`), the live KiwiSDR
 session and terminal panadapter, the receiver controller, dual RX, the
 spectrum/waterfall ops, the ADPCM codec and the self-validating benchmark
-(`bench`). What it does not run yet raises `NotImplementedError` naming
-the ROADMAP item that will bring it. It imports nothing of the JAX
+(`bench`), with every channelizer and passband variant the reference's
+configs accept. The one thing it does not run, the halo across cards,
+is refused naming ROADMAP queue 2. It imports nothing of the JAX
 package: the framework-free modules it shares with it (`ops/firdesign`,
 `ops/passband`, `io/`, `display/`, parts of `control/` and `runtime/`,
 `native`) are carried over as copies, and so is its data (`data/`).

@@ -3,9 +3,9 @@
 Counterpart of `supersdr_tpu/ops/channelizer.py`. The planar wideband
 path runs the filterbank (fold + both DIF FFT stages) as the kernel in
 `ops/cuda/channelize_fused.py`; the chan-major tiers run `channelize_c` /
-`channelize_mxu2_c` here (the K-tap fold as shifted row slices, then
-`torch.fft` over the channel axis — cuFFT on the card) or the fold kernel
-of `ops/cuda/pfb_fold.py`.
+`channelize_mxu2_c` here (the K-tap fold as shifted row slices, a
+depthwise convolution or the fold kernel of `ops/cuda/pfb_fold.py`, then
+`torch.fft` over the channel axis — cuFFT on the card).
 
 Critically sampled WOLA filterbank: channel m is centred at m·fs/M
 (wrapped to ±fs/2); the M-point DFT is factored M = n1·n2 with DIF
@@ -89,12 +89,16 @@ def _fold_slices(g2: torch.Tensor, rows: torch.Tensor, n_frames: int
 
 
 def channelize_c(plan: PFBPlan, W: torch.Tensor, carry: torch.Tensor,
-                 x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                 x: torch.Tensor, mxu_fft: bool = False
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One streaming step on complex tensors: x [*batch, n] (n a multiple
     of n_chan and of the hop) → (new carry, channels [*batch, n_chan,
     n/hop]); channel m is the band at m·fs/M, decimated to fs/hop, with
     the mixer phase referenced to the stream origin:
-        y[m, t] = Σ_j proto[j]·x[t·hop − j]·e^{2πi·m·(t·hop − j)/M}."""
+        y[m, t] = Σ_j proto[j]·x[t·hop − j]·e^{2πi·m·(t·hop − j)/M}.
+    `mxu_fft` is accepted and ignored: it picks the reference's four-step
+    matrix-product FFT over its FFT op, the same DFT, which the port
+    takes as `torch.fft` for either value."""
     n = x.shape[-1]
     M, K, hop = plan.n_chan, plan.taps_per, plan.hop
     if n % hop or n % M:
@@ -132,23 +136,98 @@ def mxu2_supported(M: int) -> bool:
     return M <= MAX_DIRECT or _pick_factors(M) is not None
 
 
+def _fold_conv(g2: torch.Tensor, rows: torch.Tensor, n_frames: int
+               ) -> torch.Tensor:
+    """The fold as a depthwise convolution down the frames axis (the
+    reference's `_fold_conv`): rows [*batch, nT, M] → [*batch, n_frames,
+    M], float32 (TF32 off: the reference runs it at HIGHEST)."""
+    K, M = g2.shape
+    lead = rows.shape[:-2]
+    inp = rows.reshape(-1, rows.shape[-2], M).transpose(1, 2)  # [N, M, nT]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        out = torch.nn.functional.conv1d(inp, g2.T[:, None, :], groups=M)
+    return out.transpose(1, 2).reshape(*lead, n_frames, M)
+
+
 def channelize_mxu2_c(plan: PFBPlan, W: torch.Tensor, carry: torch.Tensor,
-                      x: torch.Tensor, *, fold_impl: str = "slices"
+                      x: torch.Tensor, *, fold_impl: str = "slices",
+                      precision="highest", fold_dtype=torch.float32,
+                      fft_form: str = "dif"
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The reference's lane-layout channelizer ([n] complex → (new carry,
-    [M, n/M])): the fold as row slices, then the M-point DFT. The
-    reference evaluates that DFT as two DIF matrix products at its
-    precision tier; the port takes `torch.fft` in float32, which is that
-    DFT to float32 rounding."""
-    if fold_impl != "slices":
-        raise NotImplementedError(
-            f"fold_impl={fold_impl!r} is one of the reference's TPU A/B "
-            "variants, not ported (ROADMAP queue 1, do-not-port list)")
+    """The reference's lane-layout channelizer, unbatched as the
+    reference's is: [n] complex → (new carry, [M, n/M]); computed as
+    `channelize_mxu2_n`, which also takes leading axes. `precision` and
+    `fft_form` are accepted and ignored: they pick the reference's
+    matrix-product forms of the M-point DFT (two DIF products or a DIT
+    form, at a TPU precision tier), and the port takes that DFT as
+    `torch.fft` in float32 (cuFFT on the card) for every value."""
     if plan.hop != plan.n_chan:
         raise ValueError("mxu2 channelizer requires critical sampling")
     if x.ndim != 1:
         raise ValueError("mxu2 channelizer is unbatched ([n] input)")
-    return channelize_c(plan, W, carry, x)
+    return channelize_mxu2_n(plan, W, carry, x, fold_impl=fold_impl,
+                             fold_dtype=fold_dtype)
+
+
+def _fold_mxu2(plan: PFBPlan, W: torch.Tensor, carry: torch.Tensor,
+               x: torch.Tensor, fold_impl: str, fold_dtype
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's slice ("slices") or depthwise-convolution ("conv")
+    fold with its input rows rounded to `fold_dtype` (round to nearest
+    even; "conv" runs in float32 and refuses another dtype), products and
+    sums in float32: (new carry, fold complex64 [*batch, n/M, M])."""
+    M, K = plan.n_chan, plan.taps_per
+    n_frames = x.shape[-1] // M
+    seg = torch.cat([carry, x], dim=-1)
+    g2 = W.reshape(-1).flip(0).reshape(K, M).contiguous()
+    rows = seg.reshape(*seg.shape[:-1], n_frames + K - 1, M)
+    rows_r, rows_i = rows.real, rows.imag
+    if fold_dtype != torch.float32:
+        if fold_impl == "conv":
+            raise ValueError("fold_impl='conv' runs in float32; combine "
+                             "fold_dtype='f16' with the 'slices' or "
+                             "'pallas' fold")
+        rows_r, rows_i = rows_r.to(fold_dtype), rows_i.to(fold_dtype)
+    fold_fn = _fold_conv if fold_impl == "conv" else _fold_slices
+    return seg[..., -plan.history:], torch.complex(
+        fold_fn(g2, rows_r, n_frames), fold_fn(g2, rows_i, n_frames))
+
+
+def channelize_mxu2_n(plan: PFBPlan, W: torch.Tensor, carry: torch.Tensor,
+                      x: torch.Tensor, *, fold_impl: str = "slices",
+                      fold_dtype=torch.float32
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`channelize_mxu2_c` over any leading axes: carry [*batch, history],
+    x [*batch, n] complex → (new carry, chans [*batch, M, n/M]).
+
+    The fold, by `fold_impl` as the reference's:
+      "slices"  K shifted row slices: in float32 this is `channelize_c`;
+      "conv"    a depthwise `conv1d`, float32;
+      "pallas"  `ops/cuda/pfb_fold.channelize_pallas_c` (the fold kernel
+                on the card) when M is a multiple of 128, else the float32
+                slices, as the reference's.
+    fold_dtype=float16 rounds the slice fold's input rows to float16; the
+    kernel fold ignores it, as the reference's does, and "conv" refuses
+    it. Then the M-point DFT as `torch.fft` in float32."""
+    if plan.hop != plan.n_chan:
+        raise ValueError("mxu2 channelizer requires critical sampling")
+    M = plan.n_chan
+    if x.shape[-1] % M:
+        raise ValueError("block length must be a multiple of n_chan")
+    if fold_impl == "pallas":
+        if M % 128 == 0:
+            from supersdr_tpu_torch.ops.cuda import pfb_fold
+            G = W.reshape(-1).flip(0).reshape(plan.taps_per, M).contiguous()
+            c, chans = pfb_fold.channelize_pallas_c(
+                plan, G, cx.CX(carry.real.contiguous(),
+                               carry.imag.contiguous()),
+                cx.CX(x.real.contiguous(), x.imag.contiguous()))
+            return torch.complex(c.re, c.im), chans
+        fold_impl, fold_dtype = "slices", torch.float32
+    if fold_impl != "conv" and fold_dtype == torch.float32:
+        return channelize_c(plan, W, carry, x)
+    new_carry, fold = _fold_mxu2(plan, W, carry, x, fold_impl, fold_dtype)
+    return new_carry, torch.fft.fft(fold, dim=-1).transpose(-1, -2)
 
 
 def _pick_factors(M: int) -> tuple[int, int] | None:

@@ -185,10 +185,6 @@ def build(cfg: ChainConfig, mesh: Mesh, halo_impl: str = "rdma"):
         raise ValueError("passband_impl='matmul_real' is serial-only for "
                          "now (its rotation params are passband-dependent "
                          "structure); use 'matmul' on the mesh")
-    if cfg.passband_impl == "fftmxu":
-        raise NotImplementedError(
-            "passband_impl='fftmxu' is a TPU layout variant the port does "
-            "not run (ROADMAP queue 1, do-not-port list); use 'fft'")
     if halo_impl not in collectives.HALO_IMPLS:
         raise ValueError(f"halo_impl must be one of "
                          f"{collectives.HALO_IMPLS}")

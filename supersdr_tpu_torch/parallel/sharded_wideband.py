@@ -38,8 +38,9 @@ them). The tiers are the reference's:
               over the channel axis ([D, frames, M/D], bin order), then the
               FIR tail reading it as planes of M/D channels, or the
               time-major Toeplitz passband and the non-FIR tail;
-  fallback    `wideband.channelize_dispatch` over the shards, the
-              all_to_all over the channel axis, `chain.process_traced`.
+  fallback    `wideband.channelize_dispatch` over the shards (every
+              `chan_impl`, as the reference's), the all_to_all over the
+              channel axis, `chain.process_traced`.
 
 The public params and state are the serial wideband's (`wideband.make_params`
 / `init_state`), in bin order; `process.channel_order` maps audio and RSSI
@@ -272,7 +273,6 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
     if cfg.chunk_in // d < h:
         raise ValueError(f"a shard of {cfg.chunk_in // d} samples is shorter "
                          f"than the PFB history ({h})")
-    wb._check_ported(cfg)
     ccfg = cfg.chain_cfg
     M = cfg.n_chan
     ov = ccfg.n_taps - 1
@@ -372,8 +372,11 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
         head = _halo_head(re, im, state.pfb_carry, h, comm)
         if i16:
             re, im = re.float() * I16_SCALE, im.float() * I16_SCALE
-        tails, chans = wb.channelize_dispatch(cfg, params, head,
-                                              cx.CX(re, im))
+        # the next call's history is the input's tail, as the reference
+        # takes it, whatever the channelizer returns ("stub" passes its
+        # carry through)
+        tails = cx.CX(re[..., -h:].contiguous(), im[..., -h:].contiguous())
+        _, chans = wb.channelize_dispatch(cfg, params, head, cx.CX(re, im))
         # reshard: [d, M, f_local] → [d, M/d, d·f_local], i.e. this
         # process's [M/world, frames]
         chans = comm.all_to_all(chans, 0, 1).reshape(n_rows, -1)

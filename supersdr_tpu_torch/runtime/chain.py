@@ -45,8 +45,9 @@ class ChainConfig:
     the reference's. The impl/precision strings name the reference's
     tiers: the plain matmul passbands and resamplers run in float32 at
     every precision, the fused tails round operands to bf16 where the
-    reference's kernels do, and `passband_impl="fftmxu"` (a TPU layout
-    variant) raises at `process`."""
+    reference's kernels do, and `passband_impl="fftmxu"` (the reference's
+    one-row overlap-save through matrix-product DFTs) is the overlap-save
+    passband with its one row a chunk, in float32 `torch.fft`."""
     mode: str = "AM"
     iq_rate: int = 12000
     audio_rate: int = 48000
@@ -471,10 +472,6 @@ def process_traced(cfg: ChainConfig, params: ChainParams, state: ChainState,
     """One chunk through the chain: iq [*batch, chunk] as a CX on the
     params' device, or a complex64 tensor there (the wideband tier hands
     its channels over as they are)."""
-    if cfg.passband_impl == "fftmxu":
-        raise NotImplementedError(
-            "passband_impl='fftmxu' is a TPU layout variant the port does "
-            "not run (ROADMAP queue 1, do-not-port list); use 'fft'")
     iqc = iq if isinstance(iq, torch.Tensor) \
         else torch.complex(iq.re, iq.im)
     plan = cfg.os_plan
@@ -487,7 +484,10 @@ def process_traced(cfg: ChainConfig, params: ChainParams, state: ChainState,
     else:
         phase, x = state.phase, iqc
     # passband: batched overlap-save rows, or the blocked-Toeplitz matmul
-    # (the same carried input history either way)
+    # (the same carried input history either way). "fftmxu" runs one row a
+    # chunk (os_block == chunk): history ‖ chunk zero-padded to fft_size,
+    # times H_pass, transformed back, the overlap sliced off — the
+    # overlap-save branch with one row, its DFTs in float32 torch.fft
     if cfg.passband_impl == "matmul":
         _, yc = fir_matmul.fir_matmul_stream_c(
             cfg.fir_plan, params.W_pass, state.os_carry,

@@ -15,11 +15,12 @@ the reference's own predicates:
               them, or the time-major Toeplitz product does and the
               non-FIR tail follows; audio [frames·L, n_chan] in bin order;
   chan-major  (`time_major=False`, the default): `channelize_dispatch`
-              (the fold kernel with `pallas_fold`, the fused channelizer
-              permuted to bin order, or the plain fold + FFT) → the
-              receiver chain batched over the channels (`chain.process`,
-              whose ≥ 128-channel tail is one kernel launch); audio
-              [n_chan, frames·L];
+              (every `chan_impl` the reference routes: the fold kernel
+              with `pallas_fold` or "mxu2pallas", the fused channelizer
+              permuted to bin order, the slice or convolution fold +
+              FFT, the knockouts) → the receiver chain batched over the
+              channels (`chain.process`, whose ≥ 128-channel tail is one
+              kernel launch); audio [n_chan, frames·L];
   fallback    (`time_major` but `_tmajor_fused_ok` false: SMALL's 16
               channels, `--n-chan 100`, odd chunks): the chan-major
               pipeline plus one transpose.
@@ -62,20 +63,26 @@ PROFILES = {
 
 _AUDIO_DTYPES = {"f32": torch.float32, "f16": torch.float16,
                  "bf16": torch.bfloat16}
-_CHAN_IMPLS = ("legacy", "mxu2", "mxu2fused")
-_CHAN_IMPLS_NOT_PORTED = ("mxu2conv", "mxu2pallas", "stub", "nofft")
+_CHAN_IMPLS = ("legacy", "mxu2", "mxu2conv", "mxu2pallas", "mxu2fused",
+               "stub", "nofft")
+_MXU2_FOLDS = {"mxu2": "slices", "mxu2conv": "conv", "mxu2pallas": "pallas"}
 
 
 @dataclass(frozen=True)
 class WidebandConfig:
     """fs_in must equal n_chan·chain.iq_rate (critical sampling). Field
     names, order, defaults and checks follow the reference's, so one
-    keyword set builds both, less four TPU A/B knobs that are not ported
-    (mxu_chan_fft, chan_fold_dtype, chan_fft_form, chan_split2: the port
-    runs stage B unsplit). `pallas_fold` routes the chan-major
-    channelizer through the fold kernel (`ops/cuda/pfb_fold.py`); the
-    `chan_impl` values mxu2conv, mxu2pallas, stub and nofft are accepted
-    but raise at `process` (the reference's superseded variants)."""
+    keyword set builds both. `pallas_fold` routes the chan-major
+    channelizer through the fold kernel (`ops/cuda/pfb_fold.py`), and so
+    does `chan_impl="mxu2pallas"`; `channelize_dispatch` routes every
+    other `chan_impl` as the reference does. The DFT layout knobs
+    (`mxu_chan_fft`, `chan_fft_form`, `chan_precision` off the fused
+    channelizer) name the reference's forms of one DFT, which the port
+    takes as `torch.fft` in float32; `chan_fold_dtype="f16"` rounds the
+    fold's input as the reference does. `chan_split2` is the TPU kernel's
+    stage-B blocking: the port's kernel keeps stage B unsplit on every
+    tier (`_split_levels_for`), so it changes nothing the port computes,
+    and `audio_channel_order` gives the port's row order."""
     fs_in: int = 1_200_000
     n_chan: int = 100
     taps_per: int = 8
@@ -93,11 +100,15 @@ class WidebandConfig:
     passband_precision: str = "highest"
     resample_impl: str = "einsum"
     resample_precision: str = "highest"
+    mxu_chan_fft: bool = False
     chan_impl: str = "legacy"
+    chan_fold_dtype: str = "f32"
     chan_precision: str = "highest"
     tail_impl: str = "xla"
+    chan_fft_form: str = "dif"
     time_major: bool = False
     chan_tile_t: int = 128
+    chan_split2: str = "auto"
     chan_factors: tuple | None = None
     audio_dtype: str = "f32"
 
@@ -111,14 +122,16 @@ class WidebandConfig:
                              "mode keeps complex baseband)")
         if self.audio_dtype not in _AUDIO_DTYPES:
             raise ValueError("audio_dtype must be 'f32', 'f16' or 'bf16'")
+        if self.chan_split2 not in ("auto", "on", "off"):
+            raise ValueError("chan_split2 must be 'auto', 'on' or 'off'")
         if self.chan_factors is not None:
             n1f, n2f = self.chan_factors
             if n1f * n2f != self.n_chan or n2f % 128:
                 raise ValueError("chan_factors must multiply to n_chan "
                                  "with a lane-multiple n2")
-        if self.chan_impl not in _CHAN_IMPLS + _CHAN_IMPLS_NOT_PORTED:
-            raise ValueError(f"chan_impl must be one of "
-                             f"{_CHAN_IMPLS + _CHAN_IMPLS_NOT_PORTED}")
+        if self.chan_impl not in _CHAN_IMPLS:
+            raise ValueError(f"chan_impl must be one of {_CHAN_IMPLS} "
+                             "(stub/nofft: knockout profiling)")
 
     @property
     def iq_rate(self) -> int:
@@ -223,18 +236,20 @@ def _planar_active(cfg: WidebandConfig) -> bool:
 
 def _factors_for(cfg: WidebandConfig) -> tuple[int, int] | None:
     """The DIF factoring (n1, n2): `chan_factors` when given, else the
-    default tree. The reference's quality tier picks a min-n1 tree to pair
-    with its stage-B split; without the split that tree only makes stage B
-    larger, so the port keeps the default tree in both tiers."""
+    default tree, whatever `chan_split2` says. The reference's quality
+    tier picks a min-n1 tree to pair with its stage-B split; without the
+    split that tree only makes stage B larger, so the port keeps the
+    default tree in both tiers."""
     if cfg.chan_factors is not None:
         return tuple(cfg.chan_factors)
     return channelizer._pick_factors(cfg.n_chan)
 
 
 def _split_levels_for(cfg: WidebandConfig, n2: int) -> int:
-    """Stage-B split depth: 0 in both tiers. The reference splits stage B
-    into radix-2 levels to halve TPU MXU work; the port's kernel runs the
-    DFT unsplit, so raw columns are in k2 order."""
+    """Stage-B split depth: 0 in both tiers, for every `chan_split2`. The
+    reference splits stage B into radix-2 levels to halve TPU MXU work;
+    the port's kernel runs the DFT unsplit, so raw columns are in k2
+    order."""
     return 0
 
 
@@ -295,54 +310,59 @@ def _as_f32_cx(iq) -> cx.CX:
                  iq[1].float() * (1.0 / 32768.0))
 
 
-def _check_ported(cfg: WidebandConfig) -> None:
-    if cfg.chan_impl in _CHAN_IMPLS_NOT_PORTED:
-        raise NotImplementedError(
-            f"chan_impl={cfg.chan_impl!r} is one of the reference's "
-            "superseded TPU variants, not ported (ROADMAP queue 1, "
-            "do-not-port list)")
-
-
 def channelize_dispatch(cfg: WidebandConfig, params: WidebandParams,
                         carry: cx.CX, iq: cx.CX
                         ) -> tuple[cx.CX, torch.Tensor]:
-    """The chan-major channelizer, as the reference dispatches it:
-    `pallas_fold` → the fold kernel + `torch.fft`; "mxu2fused" on a
-    lane-aligned factoring and 8-aligned frames → the fused channelizer
-    kernel, its planes permuted to bin order (the reference's
-    out_layout="chan"); "mxu2fused" otherwise and "mxu2" →
-    `channelize_mxu2_c`; "legacy" → `channelize_c`.
+    """The chan-major channelizer, routed as the reference's: `pallas_fold`
+    or "mxu2pallas" on a 128-multiple n_chan → the fold kernel +
+    `torch.fft`; "stub" → the chunk reshaped to [n/M, M] and transposed,
+    the carry passed through (a knockout with no fold and no DFT, defined
+    but meaningless); "nofft" → the float16 slice fold, transposed, with
+    no DFT (a knockout); "mxu2fused" on a lane-aligned factoring and
+    8-aligned frames → the fused channelizer kernel, its planes permuted
+    to bin order (the reference's out_layout="chan"); "mxu2" /
+    "mxu2conv" / "mxu2pallas" → `channelize_mxu2_n` with the slice,
+    convolution or kernel fold and `chan_fold_dtype`; "legacy" and the
+    rest of "mxu2fused" → `channelize_c`.
 
     carry: CX [history]; iq: CX [n] float32 planes. Returns (new carry CX,
     chans complex64 [n_chan, n/n_chan]). With a leading shard axis, carry
     [D, history] and iq [D, n] (each time shard with its own history: the
     sharded pipeline's fallback tier), each shard's new carry and chans
     [D, n_chan, n/n_chan], one launch for all shards."""
-    _check_ported(cfg)
     plan = pfb_plan(cfg)
     M, K = cfg.n_chan, cfg.taps_per
     nf = iq.re.shape[-1] // M
-    if cfg.pallas_fold:
+    lead = iq.re.shape[:-1]
+    if cfg.pallas_fold or (cfg.chan_impl == "mxu2pallas" and M % 128 == 0):
         G = params.W_pfb.reshape(-1).flip(0).reshape(K, M).contiguous()
         return pfb_fold.channelize_pallas_c(plan, G, carry, iq)
+    if cfg.chan_impl == "stub":
+        chans = torch.complex(iq.re, iq.im).reshape(*lead, nf, M)
+        return carry, chans.transpose(-1, -2)
     fac = channelizer._pick_factors(M)
     if cfg.chan_impl == "mxu2fused" and fac is not None \
             and fac[1] % 128 == 0 and nf % 8 == 0:
-        n1, n2 = fac
         new_carry, (raw_r, raw_i) = channelize_fused.channelize_fused_raw3(
             plan, params.W_pfb, carry, iq, factors=fac,
             bf16_mxu=cfg.chan_precision == "default",
             out_dtype=torch.float32)
         # [n1(k1), nf, n2(k2)] → bin m = k2·n1 + k1: [n2, n1, nf] → [M, nf]
-        lead = raw_r.shape[:-3]
         return new_carry, torch.complex(
             raw_r.movedim(-1, -3).reshape(*lead, M, nf),
             raw_i.movedim(-1, -3).reshape(*lead, M, nf))
     carry_c = torch.complex(carry.re, carry.im)
     x = torch.complex(iq.re, iq.im)
-    if cfg.chan_impl in ("mxu2fused", "mxu2") and x.ndim == 1:
-        c, chans = channelizer.channelize_mxu2_c(plan, params.W_pfb,
-                                                 carry_c, x)
+    if cfg.chan_impl == "nofft":
+        c, fold = channelizer._fold_mxu2(plan, params.W_pfb, carry_c, x,
+                                         "slices", torch.float16)
+        chans = fold.transpose(-1, -2)
+    elif cfg.chan_impl in _MXU2_FOLDS:
+        c, chans = channelizer.channelize_mxu2_n(
+            plan, params.W_pfb, carry_c, x,
+            fold_impl=_MXU2_FOLDS[cfg.chan_impl],
+            fold_dtype=(torch.float16 if cfg.chan_fold_dtype == "f16"
+                        else torch.float32))
     else:
         c, chans = channelizer.channelize_c(plan, params.W_pfb, carry_c, x)
     return cx.CX(c.real.contiguous(), c.imag.contiguous()), chans

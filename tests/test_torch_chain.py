@@ -286,8 +286,15 @@ def test_chain_params_and_state_round_trip():
 
 
 def test_fftmxu_passband_raises():
-    cfg = tchain.ChainConfig(**dict(BASE, passband_impl="fftmxu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tchain.process(cfg, tchain.make_params(cfg, device="cpu"),
-                       tchain.init_state(cfg, device="cpu"),
-                       np.zeros(cfg.chunk, np.complex64))
+    """`passband_impl="fftmxu"` raised here until the reference's one-row
+    overlap-save was ported; now it runs and matches the reference's
+    audio, RSSI and state (tests/test_torch_variants.py adds batches,
+    precisions, run_offline and the mesh)."""
+    kw = dict(BASE, mode="AM", passband_impl="fftmxu")
+    jcfg, js, ts, outs = _run_both(kw, (2,), {})
+    for k, (jo, to) in enumerate(outs):
+        snr = _snr(np.asarray(jo.audio), to.audio.numpy())
+        assert snr >= AUDIO_DB, (k, snr)
+        np.testing.assert_allclose(to.rssi.numpy(), np.asarray(jo.rssi),
+                                   atol=RSSI_DB)
+    _leaves_close(js, ts)

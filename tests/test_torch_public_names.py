@@ -53,7 +53,10 @@ JAX_IDIOM = {
         "resolve_precision", "split", "stack", "swapaxes", "to_complex",
         "to_numpy")},
     "ops/pallas/channelize_fused.py": {
-        "STAGEB_2DOT": "a TPU probe on the do-not-port list (ROADMAP)"},
+        "STAGEB_2DOT": "the TPU kernel's choice of two dots or three for "
+                       "the same stage-B product, read from an environment "
+                       "variable; the port's kernel has one form and reads "
+                       "no environment variable"},
     "ops/pallas/halo.py": {
         "left_halo_rdma": "the port's halo kernel wrapper is left_halo, "
                           "one entry for both halo impls"},

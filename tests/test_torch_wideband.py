@@ -221,20 +221,27 @@ def test_make_params_matches_params_from_jax(mode):
     dict(n_taps=33, **twb.PROFILES["fast"]),
     dict(chan_impl="mxu2pallas")])
 def test_outside_the_slice_raises(extra):
-    """What the port does not run raises, naming the ROADMAP item: the
-    reference's superseded channelizer variants. The time-major fused tier
+    """What once lay outside the port now runs. The time-major fused tier
     off the planar coupling (a chunk that chan_tile_t does not divide; a
-    passband too short for the in-tail FIR block) raised here until it was
-    ported: now it runs, in bin order (tests/test_torch_wideband_tmajor.py
-    holds it against the reference)."""
+    passband too short for the in-tail FIR block) runs in bin order
+    (tests/test_torch_wideband_tmajor.py holds it against the reference);
+    `chan_impl="mxu2pallas"`, which raised until the reference's
+    channelizer variants were ported, matches the reference's audio at
+    the chan-major tiers' bound (tests/test_torch_variants.py holds every
+    variant)."""
     cfg = twb.WidebandConfig(**{**BASE, **extra})
     assert not twb._planar_active(cfg)
     args = (cfg, twb.make_params(cfg, device="cpu"),
             twb.init_state(cfg, device="cpu"),
             np.zeros(cfg.chunk_in, np.complex64))
     if extra.get("chan_impl") == "mxu2pallas":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            twb.process(*args)
+        jcfg = jwb.WidebandConfig(**{**BASE, **extra})
+        iq, _ = _inputs("AM")
+        _, jo = jwb.process(jcfg, jwb.make_params(jcfg),
+                            jwb.init_state(jcfg), iq[0])
+        _, to = twb.process(*args[:3], iq[0])
+        assert to.audio.shape == (cfg.n_chan, cfg.chunk_per_chan * 4)
+        assert _snr(np.asarray(jo.audio), to.audio.numpy()) >= 80.0
         return
     assert twb._tmajor_fused_ok(cfg)
     _, out = twb.process(*args)
