@@ -37,7 +37,11 @@ Phases, each printed as it runs; any failure exits non-zero:
      and one non-FIR tail launch a chunk, audio [2560, 64512]; then ms a
      chunk, input Msamples/s, each kernel against and beside its plain
      version at HEADLINE (the channelizer also on int16 chunks, both tails
-     also on USB, NBFM and AM with the hang), what each tail entry launches
+     also on USB, NBFM and AM with the hang), what every channelizer
+     instance launches at HEADLINE and at the mesh's (20, 128) on 8 shards
+     (registers, local bytes, shared bytes, grid, blocks an SM, frames a
+     block, its tables' bytes and what a block reads of them out of L2,
+     beside the earlier folded stage-A table), what each tail entry launches
      (registers, stack, shared bytes, grid, blocks an SM, cluster dims and
      the clusters resident at once; every FIR-tail instance), and where the
      planar and the CHANMAJOR device time goes, with the card's idle share;
@@ -926,6 +930,7 @@ def phase_timing(runs: dict, err: dict, iters: int = 5,
             print(f"time {name} {prof}: kernel {k_ms:.3f} ms, "
                   f"plain {p_ms:.3f} ms", flush=True)
         if prof == "fast":
+            _chan_launch_info(cfg)
             _fir_launch_info(cfg, "HEADLINE", cfg.n_chan)
             _tail_launch_info("chain_tail", "mesh [24, ·, 128] planes fast "
                               "AM", 24 * 128, cfg.chain_cfg, 1 << 3)
@@ -1424,6 +1429,44 @@ def _fir_launch_info(cfg, label: str, C: int) -> None:
                                   f"complex {cplx} bf16 {bf16}", C,
                                   cfg.chain_cfg,
                                   demod | cplx << 2 | bf16 << 3)
+
+
+def _chan_launch_info(cfg) -> None:
+    """What every channelizer instance launches at cfg's shape (the serial
+    (n1, n2) and the mesh's on MESH_D shards), from `launch_info`:
+    registers and local bytes a thread, shared bytes, grid, blocks an SM,
+    frames a block; and the bytes of its tables and what a block reads of
+    them out of L2, beside what the earlier design, with the folded
+    stage-A table, read a block."""
+    from supersdr_tpu_torch.ops.cuda import channelize_fused as cf
+    from supersdr_tpu_torch.parallel import sharded_wideband as sw
+    from supersdr_tpu_torch.runtime import wideband as wb
+    M, K, nf = cfg.n_chan, cfg.taps_per, cfg.chunk_per_chan
+    n1, n2 = wb._factors_for(cfg)
+    m1, m2, m1_pad = sw.plan_mesh(cfg, MESH_D).factors
+    cases = []
+    for fast in (True, False):
+        outs = (("bf16", "raw3"),) if fast else ()
+        outs += (("f32", "raw3"), ("f32", "time"))
+        for i16 in (False, True):
+            for out, layout in outs:
+                cases.append((fast, i16, out, layout, n1, n2, 1, n1))
+            cases.append((fast, i16, "bf16" if fast else "f32", "raw3", m1,
+                          m2, MESH_D, m1_pad))
+    for fast, i16, out, layout, f1, f2, D, n1_out in cases:
+        info = cf.launch_info(
+            nf=nf // D, M=M, K=K, n1=f1, n2=f2, bf16_b=fast, in_i16=i16,
+            out_dtype=torch.bfloat16 if out == "bf16" else torch.float32,
+            out_layout=layout, n_shards=D, n1_out=n1_out)
+        print(f"launch channelize_fused {'fast' if fast else 'quality'} "
+              f"{'i16' if i16 else 'f32'} in, {out} {layout} ({f1}, {f2}) "
+              f"D={D} n1_out={n1_out}: {info['regs']} registers, "
+              f"{info['local']} bytes local; {info['smem']} bytes shared a "
+              f"block, {info['blocks']} blocks of {info['threads']} threads, "
+              f"{info['per_sm']} blocks an SM, {info['frames']} frames a "
+              f"block; tables {info['table_bytes']} bytes, "
+              f"{info['l2_table_bytes']} bytes a block out of L2 (with the "
+              f"folded table: {info['l2_table_bytes_folded']})", flush=True)
 
 
 def phase_am_batch(device, err: dict, iters: int = 20,

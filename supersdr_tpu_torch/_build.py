@@ -38,6 +38,8 @@ _L = ctypes.c_long
 # a cudaError_t or a plain int.
 SIGNATURES = {
     "channelize_fused_tile": [_I, _I, _I, _I],
+    "channelize_fused_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _P],
     "channelize_fused_raw3": [_P, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P,
                               _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _P],

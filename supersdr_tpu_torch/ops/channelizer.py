@@ -245,6 +245,16 @@ def _pick_factors(M: int) -> tuple[int, int] | None:
     return None
 
 
+def _dif_factors(M: int, n1: int, n2: int) -> tuple[np.ndarray, np.ndarray]:
+    """The two factors of the stage-A matrix, complex128: the n1-point DFT
+    d1[j1, k1] = W_n1^{j1·k1} and the twiddle tw[j2, k1] = W_M^{j2·k1}."""
+    jk1 = np.outer(np.arange(n1), np.arange(n1))
+    d1 = np.exp(-2j * np.pi * jk1 / n1)                    # [j1, k1]
+    tw = np.exp(-2j * np.pi
+                * np.outer(np.arange(n2), np.arange(n1)) / M)  # [j2, k1]
+    return d1, tw
+
+
 @lru_cache(maxsize=32)
 def _dif_tables(M: int, n1: int, n2: int
                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -252,10 +262,7 @@ def _dif_tables(M: int, n1: int, n2: int
     W_n1^{j1·k1}·W_M^{j2·k1}, and the stage-B DFT c2[j2, k2] = W_n2^{j2·k2}
     (re/im float32 planes): X[k2·n1 + k1] = Σ_j2 c2[j2, k2]·Σ_j1
     A[j2, k1, j1]·x[j1·n2 + j2]."""
-    jk1 = np.outer(np.arange(n1), np.arange(n1))
-    d1 = np.exp(-2j * np.pi * jk1 / n1)                    # [j1, k1]
-    tw = np.exp(-2j * np.pi
-                * np.outer(np.arange(n2), np.arange(n1)) / M)  # [j2, k1]
+    d1, tw = _dif_factors(M, n1, n2)
     A = d1.T[None, :, :] * tw[:, :, None]                  # [j2, k1, j1]
     jk2 = np.outer(np.arange(n2), np.arange(n2))
     c2 = np.exp(-2j * np.pi * jk2 / n2)                    # [j2, k2]

@@ -25,6 +25,13 @@ pass on operands rounded to bf16 (what the plain version rounds too); else
 on float32 operands split in a high and a low bf16 piece, three passes
 (≥ 100 dB against the float32 plain version, which
 `tests/test_torch_split_product.py` models on the CPU).
+
+The plain version takes stage A as the reference does, the folded matrix
+At[j1·n1 + k1, j2] = W_n1^{j1·k1}·W_M^{j2·k1}. The kernel reads its two
+factors instead (`_stagea_tables`): the n1-point DFT and the twiddle row,
+each rounded once to float32 from `channelizer._dif_factors`' float64, and
+multiplies by the twiddle after the sum over j1 (the same function; its
+float32 rounding falls in another place).
 """
 
 from __future__ import annotations
@@ -41,6 +48,48 @@ from supersdr_tpu_torch.ops.cuda import check_fp32_matmul
 
 I16_SCALE = 1.0 / 32768.0
 MAX_TAPS_PER = 8      # the kernel's kKMax: fold rows held in registers
+MAX_SMEM = 227 * 1024  # shared bytes a block of the card can have
+ROW_TILES = 5          # the kernel's kMG: 16-row tiles a warp accumulates
+THREADS = 256          # the kernel's block
+K1_GROUP = 10          # stage-A outputs a thread accumulates
+
+
+def tile_frames(n1: int, n2: int, *, split: bool, time: bool) -> int:
+    """Frames a block of the kernel holds (8, 4 or 2; 0: none fits), as
+    its `mma_tile` picks them: the most whose stage-A output Y (bf16; the
+    split tier's high and low pieces), two tiles of the input ring (or,
+    larger, the time store's staging of T frames a warp) and the n1-point
+    DFT (its outputs padded to groups of K1_GROUP) fit in a block's shared
+    memory; the time store also wants every row tile in one pass of
+    ROW_TILES."""
+    for T in (8, 4, 2):
+        y_rows = (n1 * T + 15) // 16 * 16
+        if time and y_rows // 16 > ROW_TILES:
+            continue
+        y = (2 if split else 1) * y_rows * (2 * n2 + 8) * 2
+        ring = 2 * 2 * (min(T, 4) + MAX_TAPS_PER - 1) * THREADS * 4
+        stage = THREADS // 32 * T * (16 * n1 + 4) * 4
+        dft = n1 * -(-n1 // K1_GROUP) * K1_GROUP * 8
+        if y + max(ring, stage if time else 0) + dft <= MAX_SMEM:
+            return T
+    return 0
+
+
+def check_shape(n1: int, n2: int, K: int, *, bf16_b: bool,
+                out_layout: str) -> int:
+    """The kernel's tile for these arguments, or ValueError for a shape it
+    cannot take (before anything is built or launched)."""
+    if n1 < 1 or n2 < 1 or n2 % 128:
+        raise ValueError(f"factoring ({n1}, {n2}): the kernel wants n2 a "
+                         "multiple of 128")
+    if not 1 <= K <= MAX_TAPS_PER:
+        raise ValueError(f"the kernel folds 1 to {MAX_TAPS_PER} taps a "
+                         f"branch, got taps_per={K}")
+    T = tile_frames(n1, n2, split=not bf16_b, time=out_layout == "time")
+    if T == 0:
+        raise ValueError(f"factoring ({n1}, {n2}): the stage-A tile does "
+                         "not fit in shared memory")
+    return T
 
 
 @lru_cache(maxsize=16)
@@ -74,6 +123,20 @@ def _stageb_table_bf16(M: int, n1: int, n2: int, split: bool, device: str
     if split:
         hi = torch.cat([hi, (ct - hi.float()).to(torch.bfloat16)])
     return hi.contiguous().to(device)
+
+
+@lru_cache(maxsize=16)
+def _stagea_tables(M: int, n1: int, n2: int, device: str
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's stage-A factors as complex64 pairs, each rounded once
+    from float64: the n1-point DFT [n1 (j1), n1 (k1), 2] and the twiddle
+    row [n1 (k1), n2 (j2), 2]."""
+    d1, tw = channelizer._dif_factors(M, n1, n2)
+
+    def pairs(z):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.stack([z.real, z.imag], axis=-1).astype(np.float32)))
+    return pairs(d1).to(device), pairs(tw.T).to(device)
 
 
 def channelize_fused_plain(g2: torch.Tensor, At_r: torch.Tensor,
@@ -133,25 +196,37 @@ def channelize_fused_plain(g2: torch.Tensor, At_r: torch.Tensor,
     return out_r.to(out_dtype), out_i.to(out_dtype)
 
 
+@lru_cache(maxsize=64)
+def _tile_agrees(n1: int, n2: int, bf16_b: bool, time: bool) -> None:
+    """Raise unless the built kernel's plan picks `tile_frames`' tile."""
+    got = _build.load().channelize_fused_tile(n1, n2, int(bf16_b), int(time))
+    want = tile_frames(n1, n2, split=not bf16_b, time=time)
+    if got != want:
+        raise RuntimeError(f"channelize_fused: the kernel tiles ({n1}, {n2}) "
+                           f"by {got} frames, tile_frames by {want}")
+
+
 def _launch(g2, At_r, At_i, c2, head_r, head_i, x_r, x_i, *, n1, n2,
             in_scale, bf16_b, out_dtype, out_layout="raw3", n1_out=None):
-    lib = _build.load()
+    """The kernel on the plain version's arguments; it reads the taps
+    transposed ([M, 8], zeros past K), the factored stage-A tables and its
+    own stage-B table in place of g2, At and c2."""
     *lead, nf, M = x_r.shape
     D = lead[0] if lead else 1
     n1o = n1 if n1_out is None else n1_out
     K = g2.shape[0]
-    if lib.channelize_fused_tile(n1, n2, int(bf16_b),
-                                 int(out_layout == "time")) == 0:
-        raise ValueError(f"factoring ({n1}, {n2}): the stage-A tile does "
-                         "not fit in shared memory")
-    if K > MAX_TAPS_PER:
-        raise ValueError(f"the kernel folds at most {MAX_TAPS_PER} taps a "
-                         f"branch, got taps_per={K}")
+    check_shape(n1, n2, K, bf16_b=bf16_b, out_layout=out_layout)
+    lib = _build.load()
+    _tile_agrees(n1, n2, bool(bf16_b), out_layout == "time")
     if x_r.data_ptr() % 16 or x_i.data_ptr() % 16:
         # the kernel copies rows in 16-byte pieces
         x_r, x_i = x_r.clone(), x_i.clone()
+    gt = g2.new_zeros(M, MAX_TAPS_PER)
+    gt[:, :K] = g2.T
+    dev = str(x_r.device)
+    dft, tw = _stagea_tables(M, n1, n2, dev)
     # stage B on the tensor cores reads its own table layout, not c2
-    ct = _stageb_table_bf16(M, n1, n2, not bf16_b, str(x_r.device))
+    ct = _stageb_table_bf16(M, n1, n2, not bf16_b, dev)
     shape = (*lead, nf, M) if out_layout == "time" else (*lead, n1o, nf, n2)
     out_r = torch.empty(shape, dtype=out_dtype, device=x_r.device)
     out_i = torch.empty_like(out_r)
@@ -159,7 +234,7 @@ def _launch(g2, At_r, At_i, c2, head_r, head_i, x_r, x_i, *, n1, n2,
     err = lib.channelize_fused_raw3(
         p(x_r.data_ptr()), p(x_i.data_ptr()), int(x_r.dtype == torch.int16),
         float(in_scale), p(head_r.data_ptr()), p(head_i.data_ptr()),
-        p(g2.data_ptr()), p(At_r.data_ptr()), p(At_i.data_ptr()),
+        p(gt.data_ptr()), p(dft.data_ptr()), p(tw.data_ptr()),
         p(ct.data_ptr()), p(out_r.data_ptr()), p(out_i.data_ptr()),
         int(out_dtype == torch.bfloat16), nf, M, K, n1, n2, int(bf16_b),
         int(out_layout == "time"), D, n1o,
@@ -167,6 +242,57 @@ def _launch(g2, At_r, At_i, c2, head_r, head_i, x_r, x_i, *, n1, n2,
     _build.check(err, "channelize_fused_raw3")
     channelize_fused_raw3.launches += 1
     return out_r, out_i
+
+
+LAUNCH_KEYS = ("smem", "blocks", "threads", "per_sm", "regs", "local",
+               "frames")
+
+
+def l2_table_bytes(M: int, K: int, n1: int, n2: int, T: int, bf16_b: bool,
+                   folded: bool = False) -> int:
+    """Bytes of tables a block of T frames reads out of L2: the taps (8 a
+    channel, zeros past K) once a pass over its columns (T/4 frame passes ×
+    the passes over the stage-A output groups), the twiddle row once a
+    frame pass, the n1-point DFT once, and the stage-B table; `folded`:
+    the earlier design instead, which read K taps a channel and the folded
+    n1·n1 × n2 stage-A table once a frame pass, and ran a pass a group of
+    outputs with every thread on one column."""
+    frame_passes = T // min(T, 4)
+    groups = -(-n1 // K1_GROUP)
+    stageb = 2 * n2 * n2 * (2 if bf16_b else 4)
+    if folded:
+        return frame_passes * (groups * 4 * K * M + 8 * n1 * n1 * n2) + stageb
+    k1_passes = -(-groups // (THREADS // min(n2, THREADS)))
+    return (frame_passes * (k1_passes * 4 * MAX_TAPS_PER * M + 8 * n1 * n2)
+            + 8 * n1 * n1 + stageb)
+
+
+def launch_info(*, nf: int, M: int, K: int, n1: int, n2: int, bf16_b: bool,
+                in_i16: bool = False, out_dtype: torch.dtype = torch.float32,
+                out_layout: str = "raw3", n_shards: int = 1,
+                n1_out: int | None = None) -> dict:
+    """What the kernel launches for these arguments, from the card's
+    runtime, without launching (`channelize_fused_launch`): LAUNCH_KEYS —
+    shared bytes a block, blocks, threads a block, blocks an SM, registers
+    and local bytes a thread, frames a block; plus the bytes of the tables
+    it reads (`table_bytes`: taps, DFT, twiddle row, stage-B table) and
+    `l2_table_bytes`' figures a block for this kernel and the earlier
+    design."""
+    check_shape(n1, n2, K, bf16_b=bf16_b, out_layout=out_layout)
+    out = (ctypes.c_long * len(LAUNCH_KEYS))()
+    _build.check(_build.load().channelize_fused_launch(
+        int(in_i16), int(out_dtype == torch.bfloat16), nf, M, K, n1, n2,
+        int(bf16_b), int(out_layout == "time"), n_shards,
+        n1 if n1_out is None else n1_out, ctypes.cast(out, ctypes.c_void_p)),
+        "channelize_fused_launch")
+    info = dict(zip(LAUNCH_KEYS, out))
+    T = info["frames"]
+    info["table_bytes"] = (4 * MAX_TAPS_PER * M + 8 * n1 * n1 + 8 * n1 * n2
+                           + 2 * n2 * n2 * (2 if bf16_b else 4))
+    info["l2_table_bytes"] = l2_table_bytes(M, K, n1, n2, T, bf16_b)
+    info["l2_table_bytes_folded"] = l2_table_bytes(M, K, n1, n2, T, bf16_b,
+                                                   folded=True)
+    return info
 
 
 def channelize_fused_c(plan: channelizer.PFBPlan, W: torch.Tensor,

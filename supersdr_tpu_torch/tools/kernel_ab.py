@@ -13,17 +13,23 @@ then each tree's kernels are timed in its own process, first in the order
 given and then in reverse (A B B A), so a drift of the card shows. Shapes,
 inputs and the plain versions are `chip_smoke.py`'s at HEADLINE (2560
 channels × 16128 frames; the time store at 16200). NAMES, comma
-separated: chan_fast, chan_quality (float32 and int16 raw planes and the
-time store), tail_fast, tail_quality (the FIR tail on the channelizer's
-planes), am (the non-FIR tail on a chain-major complex [2560, 16128]
-passband, chain-major audio), am_time (the same tail on time-major planes
-[16128, 2560] with time-major audio and the power row, the 33-tap
-branch's peak segment), am_batch (the tail as `chain.process` runs it on
-128 and on 2560 receivers × 2048 samples); and, by name only, three of
-`chip_smoke.py`'s phases whole, end to end: sharded (SHARDED and the 2 × 4 grid, sharded and
-serial ms a call), mesh (HEADLINE through the sharded wideband on 8, 4
-and 2 shards, ms a chunk) and chanmajor (CHANMAJOR, ms a chunk, its
-kernels and its profile), which print their own checks and `time` lines.
+separated: chan_fast, chan_quality (float32 and int16 raw planes, the
+time store, and the mesh form on 8 shards), tail_fast, tail_quality (the
+FIR tail on the channelizer's planes), am (the non-FIR tail on a
+chain-major complex [2560, 16128] passband, chain-major audio), am_time
+(the same tail on time-major planes [16128, 2560] with time-major audio
+and the power row, the 33-tap branch's peak segment), am_batch (the tail
+as `chain.process` runs it on 128 and on 2560 receivers × 2048 samples);
+and, by name only, five of
+`chip_smoke.py`'s phases whole, end to end: sharded (SHARDED and the 2 ×
+4 grid, sharded and serial ms a call), mesh (HEADLINE through the
+sharded wideband on 8, 4 and 2 shards, ms a chunk), chanmajor
+(CHANMAJOR, ms a chunk, its kernels and its profile), main (the planar
+main path on both profiles, float32 and int16: its checks, then ms a
+chunk as `main_*` in RESULT, with the kernels against their plain
+versions at HEADLINE) and bench (`cli bench`'s measurement with its
+gates: input Msamples/s and step_ms a tier as `bench_*`), which print
+their own checks and `time` lines.
 In the first turn every kernel is also held against its plain version and
 the SNR printed (nothing is asserted: a copy with a phase compiled out
 disagrees by design). Each process prints one line `RESULT <tree> {name:
@@ -40,7 +46,7 @@ import sys
 
 ALL = ("chan_fast", "chan_quality", "tail_fast", "tail_quality", "am",
        "am_time", "am_batch")
-PHASES = ("sharded", "mesh", "chanmajor")
+PHASES = ("sharded", "mesh", "chanmajor", "main", "bench")
 
 
 def time_tree(what: tuple, check: bool) -> None:
@@ -83,6 +89,8 @@ def time_tree(what: tuple, check: bool) -> None:
             tcfg = wb.WidebandConfig(**cs.TMAJOR, **wb.PROFILES[prof])
             run(f"chan_{prof}_time", *cs._chan_case(
                 tcfg, params, gen, i16=False, device=dev, layout="time"))
+            run(f"chan_{prof}_mesh", *cs._mesh_chan_case(
+                cfg, params, gen, device=dev)[:2])
         if f"tail_{prof}" in what:
             run(f"tail_{prof}", *cs._tail_case(cfg, params, gen, device=dev,
                                                raw=raw))
@@ -111,6 +119,17 @@ def time_tree(what: tuple, check: bool) -> None:
         cs.phase_mesh(dev, {})
     if "chanmajor" in what:
         cs.phase_chanmajor_timing(cs.phase_chanmajor(cs.HEADLINE, dev), {})
+    if "main" in what:
+        runs = cs.phase_main_path(cs.HEADLINE, dev)["runs"]
+        res.update({k: v for k, v in cs.phase_timing(runs, {}).items()
+                    if k.startswith("main_")})
+        del runs
+        torch.cuda.empty_cache()
+    if "bench" in what:
+        out = cs.phase_bench(dev)["out"]
+        for tier in ("fast", "quality"):
+            t = out if out["profile"] == tier else out[tier]
+            res[f"bench_{tier}"] = [t["value"], t["step_ms"]]
     print("RESULT", os.path.basename(os.getcwd()), json.dumps(res),
           flush=True)
 

@@ -99,8 +99,8 @@ def apply_patch(src: str, patch: str) -> str:
         at = next((i for i in range(pos, len(lines) - len(old) + 1)
                    if lines[i:i + len(old)] == old), None)
         if at is None:
-            raise SystemExit(f"tail_phases: {PATCH.name} does not apply to "
-                             f"{SOURCE} (at line {pos + 1})")
+            raise SystemExit(f"a hunk of the patch does not apply (after "
+                             f"line {pos + 1} of the source)")
         out += lines[pos:at] + new
         pos = at + len(old)
     return "".join(out + lines[pos:])
