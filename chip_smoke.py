@@ -715,6 +715,23 @@ def phase_kernels(shape: dict, device, err: dict, seed: int = 7) -> None:
         _compare("chain_tail", f"{prof} {mode} nf={cfg.chunk_per_chan}",
                  *_tail_case(cfg, params, gen, device=device, tile=tile),
                  TOL_SNR_DB["tail"], device, err)
+    # a 601-tap passband (a 608-row history over 256-row tiles) on 1280
+    # frames, whose tail tile (640) holds the FIR block: the quality tier's
+    # planes and the 2-D source (float32 rows) on both tiers
+    long = dict(shape, n_taps=601, chunk_in=shape["n_chan"] * 1280)
+    for prof, time2d in (("quality", False), ("fast", True),
+                         ("quality", True)):
+        cfg = wb.WidebandConfig(**long, **wb.PROFILES[prof])
+        params = wb.make_params(cfg, device=device)
+        src = "2-D source" if time2d else "planes"
+        _compare("chain_tail", f"{prof} AM 601 taps {src} "
+                 f"nf={cfg.chunk_per_chan}",
+                 *_tail_case(cfg, params, gen, device=device,
+                             time2d=time2d),
+                 TOL_SNR_DB["tail"], device, err)
+        _tail_launch_info("chain_tail", f"{prof} AM 601 taps {src}",
+                          cfg.n_chan, cfg.chain_cfg,
+                          (prof == "fast") << 3)
     # 10 planes of 40 channels: 50 blocks, a block count that is no multiple
     # of 4, 400 channels that are no multiple of 32
     for prof in ("fast", "quality"):
@@ -933,7 +950,7 @@ def phase_timing(runs: dict, err: dict, iters: int = 5,
             _chan_launch_info(cfg)
             _fir_launch_info(cfg, "HEADLINE", cfg.n_chan)
             _tail_launch_info("chain_tail", "mesh [24, ·, 128] planes fast "
-                              "AM", 24 * 128, cfg.chain_cfg, 1 << 3)
+                              "AM", 24 * 128, cfg.chain_cfg, 3 << 3)
         # the other demodulators through the scanned body at this length,
         # USB on complex taps, and AM with the hang
         for mode, agc, hang in (("USB", None, False),
@@ -1388,7 +1405,8 @@ TAIL_ENTRIES = {"chain_tail": 0, "chain_tail_am": 1, "chain_tail_am_c": 2}
 def _tail_launch_info(name: str, label: str, C: int, ccfg,
                       variant: int = 0) -> None:
     """What a tail entry (`TAIL_ENTRIES`; the FIR entry's `variant` =
-    demod | complex taps << 2 | bf16 operands << 3) launches at these
+    demod | complex taps << 2 | bf16 operands << 3 | bf16 input rows << 4)
+    launches at these
     shapes, from the runtime and the occupancy calculator: registers and
     stack bytes a thread, shared bytes a block, grid, blocks an SM, cluster
     dims and the clusters resident at once, and whether the grid is one
@@ -1421,14 +1439,17 @@ def _tail_launch_info(name: str, label: str, C: int, ccfg,
 
 def _fir_launch_info(cfg, label: str, C: int) -> None:
     """`_tail_launch_info` of every FIR-tail instance (demodulator ×
-    complex taps × operand type) at cfg's chain."""
+    complex taps × operand type) at cfg's chain, on the planar path's rows
+    (bf16 for bf16 operands, else float32), and of the bf16 instances on
+    the float32 rows of the 2-D source."""
     for demod in range(3):
         for cplx in (0, 1):
-            for bf16 in (0, 1):
+            for bf16, rows in ((0, 0), (1, 1), (1, 0)):
                 _tail_launch_info("chain_tail", f"{label} demod {demod} "
-                                  f"complex {cplx} bf16 {bf16}", C,
-                                  cfg.chain_cfg,
-                                  demod | cplx << 2 | bf16 << 3)
+                                  f"complex {cplx} bf16 {bf16} rows "
+                                  f"{'bf16' if rows else 'f32'}", C,
+                                  cfg.chain_cfg, demod | cplx << 2
+                                  | bf16 << 3 | rows << 4)
 
 
 def _chan_launch_info(cfg) -> None:
@@ -3595,8 +3616,9 @@ def fold_library(run: dict, iters: int = 5, seed: int = 15) -> float:
 def kernel_bounds(halo_bound: tuple) -> dict:
     """Each kernel's bound at the shape it is timed at (HEADLINE: 2560
     channels × 16128 frames; the fast tier for the channelizer and the FIR
-    tail; "…_mesh": at the mesh's shapes on 8 shards, (20, 128) with 24
-    planes and the FIR tail on 3072 rows), from the shapes alone."""
+    tail, and "chain_tail_quality" for the FIR tail's quality tier; "…_mesh":
+    at the mesh's shapes on 8 shards, (20, 128) with 24 planes and the FIR
+    tail on 3072 rows), from the shapes alone."""
     from supersdr_tpu_torch.ops import channelizer
     from supersdr_tpu_torch.parallel import sharded_wideband as sw
     from supersdr_tpu_torch.runtime import wideband as wb
@@ -3616,13 +3638,16 @@ def kernel_bounds(halo_bound: tuple) -> dict:
             + 8 * n1 * n1 * n2 + 8 * n2 * n2 + 2 * 2 * nf * n1_out * n2,
             {"fp32": samples * (4 * K + 8 * n1), "bf16": samples * 8 * n2})
 
-    def tail(C):
-        # bf16 raw planes and f32 history in, f32 audio out; real taps on
-        # bf16 operands, the rest in float32
-        n = nf * C
+    def tail(C, quality=False):
+        # raw planes (bf16; quality: float32) and f32 history in, f32 audio
+        # out; real taps on bf16 operands (quality: split in two pieces,
+        # three passes), the rest in float32
+        n, x_bytes = nf * C, 4 if quality else 2
         return bound_ms(
-            2 * 2 * n + 2 * 4 * ov * C + (4 + per) * C * 4 * 2 + 4 * n * L,
-            {"bf16": n * 4 * cfg.n_taps, "fp32": n * (2 * per * L + 40)})
+            2 * x_bytes * n + 2 * 4 * ov * C + (4 + per) * C * 4 * 2
+            + 4 * n * L,
+            {"bf16": (3 if quality else 1) * n * 4 * cfg.n_taps,
+             "fp32": n * (2 * per * L + 40)})
     def am(C, n):
         # complex64 passband in, float32 audio out, the state rows in and
         # out; the resampler's and the scans' operations in float32
@@ -3633,6 +3658,7 @@ def kernel_bounds(halo_bound: tuple) -> dict:
     return {
         "channelize_fused": chan(n1, n2, n1, 1),
         "chain_tail": tail(M),
+        "chain_tail_quality": tail(M, quality=True),
         "channelize_fused_mesh": chan(m1, m2, m1_pad, MESH_D),
         "chain_tail_mesh": tail(m1_pad * m2),
         "pfb_fold": bound_ms(
@@ -3760,6 +3786,9 @@ def main() -> int:
                  mesh_bound_ms=bounds["channelize_fused_mesh"][0]),
         _summary("chain_tail", "chain_tail.cu", "chain_tail.py:332", paths,
                  err, times["chain_tail_fast"], bounds["chain_tail"],
+                 quality_ms=times["chain_tail_quality"][0],
+                 quality_plain_ms=times["chain_tail_quality"][1],
+                 quality_bound_ms=bounds["chain_tail_quality"][0],
                  mesh_ms=times["mesh_chain_tail_fast"][0],
                  mesh_plain_ms=times["mesh_chain_tail_fast"][1],
                  mesh_bound_ms=bounds["chain_tail_mesh"][0]),
@@ -3793,6 +3822,9 @@ def main() -> int:
         print(f"bound {k['name']}: {k['ms']:.4f} ms against "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}), launches "
               f"{k['paths']}", flush=True)
+    q_ms, q_bound = times["chain_tail_quality"][0], bounds["chain_tail_quality"]
+    print(f"bound chain_tail quality: {q_ms:.4f} ms against "
+          f"{q_bound[0]:.4f} ms ({q_bound[1]})", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,8 +44,8 @@ SIGNATURES = {
                               _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _P],
     "chain_tail_channels_per_block": [],
-    "chain_tail_fir": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
-                       _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P],
+    "chain_tail_fir": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                       _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P],
     "chain_tail_am": [_P, _P, _L, _L, _I, _I, _P, _I, _I, _P, _I, _I, _I,
                       _I, _P, _P, _P, _L, _L, _P],
     "chain_tail_am_c": [_P, _L, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P,

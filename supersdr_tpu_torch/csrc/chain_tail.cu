@@ -28,23 +28,34 @@
 // last n_taps−1 inputs carried in through `head`.
 //
 // What bounds it on this card: bytes. At the 2560-channel headline a chunk
-// reads ~165 MB of bf16 raw planes (330 MB of float32 y for the non-FIR
-// entry) and writes ~660 MB of audio: 0.25-0.30 ms at 3.35 TB/s. The
-// passband FIR (4·n_taps FLOP a sample with real taps, ~42 GFLOP a chunk)
-// is small at tensor-core rates (it took ~1.5 ms as a sliding window on the
-// CUDA cores), and the recurrences are 16128 dependent steps a channel only
-// if they are run as such (one thread a channel: ~2.7 ms). As scans, with
-// the FIR on the tensor cores, the FIR entry takes 1.03-1.05 ms fast,
-// 1.38-1.41 quality (H100 80GB HBM3, 700 W). Copies with a phase compiled
-// out (tools/tail_phases.py) split it: without the resampler 0.74-0.76 ms
-// (the FIR, scans, window and state), the resampler's arithmetic ~0.19 and
-// its 32-byte audio stores ~0.1, which overlap other blocks' FIR and
-// scans. In the 8-channel non-FIR entry (0.71-0.73 ms) the resampler
-// hides under the stores, which cost ~0.27.
+// reads ~165 MB of bf16 raw planes (330 MB of float32 planes on the
+// quality tier and of float32 y for the non-FIR entry) and writes ~660 MB
+// of audio: 0.25-0.30 ms at 3.35 TB/s. The passband FIR (4·n_taps FLOP a
+// sample with real taps, ~42 GFLOP a chunk; three times that as the
+// quality tier's split product) is small at tensor-core rates (it took
+// ~1.5 ms as a sliding window on the CUDA cores), and the recurrences are
+// 16128 dependent steps a channel only if they are run as such (one thread
+// a channel: ~2.7 ms). Measured (H100 80GB HBM3, 700 W; see PERF.md for
+// the runs): the FIR entry's earlier design took 1.03-1.08 ms fast,
+// 1.38-1.41 quality; copies with a phase compiled out
+// (tools/tail_phases.py) put 0.28-0.31 ms in the resampler and its stores,
+// 0.19 in the scans, 0.11 (quality 0.18) in the window's history copy and
+// transpose, and nothing (quality 0.26) in the FIR. This design runs the
+// FIR into a second y buffer beside the scans, with a ring window read by
+// ldmatrix, and reads its taps itself: 0.92-0.94 ms fast, 1.24-1.25
+// quality against the earlier design's 1.04-1.06 / 1.39-1.40 in the same
+// run. Of that, the core took a tile ~2-3 % less time fast and ~9 %
+// quality; reading the taps here removed ~0.03-0.05 ms of small launches a
+// call. Without the resampler the core took 0.71-0.77 / 0.98-1.00, and the
+// fast tier's FIR and scans no longer showed: copies without either read
+// the same, while the quality tier's three FIR passes (0.25-0.28) and
+// scans (0.27) still add. In the
+// 8-channel non-FIR entry (0.71-0.73 ms) the resampler hides under the
+// stores, which cost ~0.27.
 //
 // Design: a block owns 8 channels and 8 warps and walks time in tiles of
-// T ≥ n_taps−1 (FIR) or 256 samples; no block carries anything to another,
-// and a ragged last block of channels is masked.
+// T = 256 samples, whatever the passband's length; no block carries
+// anything to another, and a ragged last block of channels is masked.
 //  * FIR, bf16 operands (the fast tier): each tile is the product
 //    y[T, 8] = Toeplitz(h)[T, OVP+T]·win[OVP+T, 8] on the tensor cores
 //    (mma.sync m16n8k16, bf16 → f32; N = 8 is the block's 8 channels, the
@@ -53,14 +64,45 @@
 //    zero-padded bf16 copy of h in shared memory (two copies, one shifted by
 //    an element, keep odd rows aligned); three of a fragment's four
 //    registers slide from one k-step to the next, and only the
-//    (OVP/16 + 1) k-blocks inside the band are visited. The window is kept
-//    bf16, channel-major, with a row stride that makes the B-fragment loads
-//    conflict-free. Complex taps run four products a step.
+//    (OVP/16 + 1) k-blocks inside the band are visited. Complex taps run
+//    four products a step. The taps are read out of the passband's
+//    Toeplitz matrix and rounded here: the wrapper's gathers and bf16
+//    round trips were seven small launches in front of every call (a
+//    fixed ~45 µs of a call timed alone, most of it idle card).
+//  * The window is a ring of R ≥ OVP + T input rows (a power of two), 16
+//    bytes a row: the 8 channels' bf16 values of one time step, as the
+//    channelizer's planes hold them, copied in by 16-byte cp.async with no
+//    pass over them. Input row τ sits at slot τ mod R (the history from
+//    `head` at τ < 0). The B fragments are ldmatrix.x4.trans loads: each
+//    lane names one of the 32 rows (16 of a k-block, re and im), so the
+//    transposed fragment comes out of the hardware and the ring's wrap is
+//    an address. The earlier design moved the window's 256 history columns
+//    each tile and transposed each row into a channel-major copy; its
+//    history copy needed T ≥ n_taps − 1, the ring holds a history longer
+//    than a tile, so a long passband keeps T = 256 and its shared area
+//    small (601 taps on float32 rows: ~113 KB, where rounding T up to 768
+//    took ~247 KB, over the 227 KB a block may have).
 //  * FIR, float32 operands (the quality tier): the same product with taps
 //    and window each split into a high and a low bf16 piece (x ≈ hi + lo),
 //    in three passes into the same accumulators, hi·hi + hi·lo + lo·hi: 108
-//    dB against the float32 plain version, ~0.6 ms where the sliding
-//    register window on the CUDA cores took ~1.5.
+//    dB against the float32 plain version. A float32 row's 32 bytes land as
+//    its two 16-byte halves in the slot of the high and of the low ring, and
+//    the thread that copied them splits them there, in place, before the
+//    tile's first barrier. The passes stay rolled: unrolled, the split
+//    instances spilled 188-364 bytes and ran ~9 % slower.
+//  * A tile's order, y double-buffered: one block barrier, then each warp
+//    runs its share of the FIR of tile i + 1 (32 of its rows, all 8
+//    channels) into one buffer and its channel's scans of tile i on the
+//    other, with no barrier between them; a second barrier, then the copies
+//    of tile i + 2's rows start (into the slots of tile i, which the FIR of
+//    tile i + 1 has read) and tile i is resampled. Two barriers a tile
+//    against the earlier design's five. The scans leave the gained audio in
+//    y.re in place, and the warp writes its last per−1 samples in front of
+//    the other buffer's row as the next tile's resample history. Between
+//    tiles a channel's carried state stays in shared memory, not in the
+//    registers the FIR needs. Not kept: warps 0-3 running the FIR first and
+//    warps 4-7 the scans first, so that the tensor cores and the CUDA cores
+//    work at once (`stagger`, see PERF.md for its times).
 //  * The recurrences run as scans, one warp a channel: a lane owns 8
 //    consecutive samples of a 256-sample piece, scans them in registers,
 //    the 32 lane totals are scanned with 5 shuffles and the prefix is
@@ -98,8 +140,10 @@
 //  * Not kept: whole 128-byte lines through the cluster. A warp a channel
 //    in the resampler, the four blocks' rows staged in shared memory and
 //    stored a quarter each with 16-byte loads over distributed shared
-//    memory (tools/tail_exchange.patch) is correct and slower: FIR fast
-//    1.31-1.34 ms, quality 2.12-2.13, the non-FIR entry 1.13-1.16. Its
+//    memory (tools/tail_exchange.patch, now on the non-FIR entry only: its
+//    part in the FIR entry went with the kernel it edited) was correct and
+//    slower: FIR fast 1.31-1.34 ms, quality 2.12-2.13, the non-FIR entry
+//    1.13-1.16. Its
 //    staging alone (no distributed shared memory, block barriers) costs
 //    more than the 32-byte stores it replaces (1.15-1.17 / 1.59-1.68 /
 //    0.96-0.98), the exchange without any global store more still
@@ -107,11 +151,10 @@
 //    stores gain from the tensor memory accelerator (the tile's rows
 //    stored from shared memory asynchronously: 0.73 ms) or a streaming
 //    hint: what they cost is in the memory system, not in issuing them.
-//  * The next tile's input rows are copied asynchronously (cp.async) into
-//    the passband rows' space while the resampler runs, which reads
-//    neither: the FIR entry stages raw rows there (16 bytes a row of 8 bf16
-//    channels) and transposes them into the window, the 8-channel non-FIR
-//    entry copies 4 bytes a sample straight into place.
+//  * The next tile's input rows are copied asynchronously (cp.async) while
+//    the resampler runs: the FIR entry's into its ring (above), two tiles
+//    ahead; the 8-channel non-FIR entry's, 4 bytes a sample, straight into
+//    the passband rows' space, which the resampler does not read.
 //  * The scans' per-sample arithmetic is what the non-FIR tail spends most
 //    on, and its exact forms cost more than they look: an IEEE division in
 //    the gain law is a call to a slow-path routine, which kept the scan's
@@ -200,10 +243,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__host__ __device__ inline int tile_rows(int ov) {
-  return ov <= kTile ? kTile : (ov + kTile - 1) / kTile * kTile;
-}
-
 // Smallest stride ≥ n that is ≡ 4 (mod 32): 8 channel rows then start in
 // banks 0, 4, …, 28.
 __host__ __device__ inline int row_stride(int n) {
@@ -231,8 +270,8 @@ struct TailArgs {
   int cluster;          // 1: launched in clusters of kCluster blocks
 };
 
-// Shared memory of the 8-channel blocks after an entry's own area
-// (floats): [per·L] P, [2·kPowN] powers of the DC pole and the attack,
+// Shared memory of the 8-channel non-FIR entry (floats; the FIR entry
+// takes H and nsegs from it): [per·L] P, [2·kPowN] powers of the DC pole and the attack,
 // [kCB][S] y.re, [kCB][S] y.im, [kCB][S1] resample segment (H history
 // slots, then the tile), [kCB][4][nsegs] the segment folds (for each warp:
 // p_prev − d, ring max, and the running peak and hang peak at each
@@ -693,13 +732,14 @@ __device__ void tail_scan(const TailArgs& a, const float* pows,
 // groups lie 32 samples apart, so with the rows' pad word every 32 samples
 // its window loads hit 32 banks, and its stores are 4 rows of 8 channels
 // (32-byte pieces). Sums over m in the plain version's order.
-__device__ void tail_resample4(const TailArgs& a, const Smem& sm, int c0,
+__device__ void tail_resample4(const TailArgs& a, const float* ps,
+                               const float* rows, int S1, int H, int c0,
                                int t0, int tlen) {
   const int tid = threadIdx.x;
   const int c = tid & (kCB - 1), g = tid >> 3 & 3, w = tid >> 5;
   if (c0 + c >= a.C) return;
-  const int hoff = sm.lay.H - (a.per - 1);
-  const float* a1c = sm.a1 + c * sm.lay.S1;
+  const int hoff = H - (a.per - 1);
+  const float* a1c = rows + c * S1;
   float* dst = a.audio + (long)(c0 + c) * a.a_sc;
   for (int s = 0; s < tlen; s += 4 * 32) {
     const int n0 = s + 32 * g + kRS * w;
@@ -713,7 +753,7 @@ __device__ void tail_resample4(const TailArgs& a, const Smem& sm, int c0,
     }
     for (int m = 0; m < a.per; ++m) {
       // one 16-byte broadcast load (P is 16-byte aligned)
-      float4 p4 = reinterpret_cast<const float4*>(sm.ps)[m];
+      float4 p4 = reinterpret_cast<const float4*>(ps)[m];
       if (a.rs_bf16)
         p4 = make_float4(bf16_round(p4.x), bf16_round(p4.y),
                          bf16_round(p4.z), bf16_round(p4.w));
@@ -742,19 +782,20 @@ __device__ void tail_resample4(const TailArgs& a, const Smem& sm, int c0,
 
 // ×L polyphase resample, any L, one output at a time: a thread owns one
 // input sample of one channel and its L outputs.
-__device__ void tail_resample_l(const TailArgs& a, const Smem& sm, int c0,
+__device__ void tail_resample_l(const TailArgs& a, const float* ps,
+                                const float* rows, int S1, int H, int c0,
                                 int t0, int tlen) {
   const int tid = threadIdx.x, L = a.L;
-  const int hoff = sm.lay.H - (a.per - 1);
+  const int hoff = H - (a.per - 1);
   const int c = tid & (kCB - 1);
   if (c0 + c >= a.C) return;
-  const float* a1c = sm.a1 + c * sm.lay.S1;
+  const float* a1c = rows + c * S1;
   float* dst = a.audio + (long)(c0 + c) * a.a_sc;
   for (int n = tid >> 3; n < tlen; n += kThreads / kCB)
     for (int q = 0; q < L; ++q) {
       float acc = 0.f;
       for (int m = 0; m < a.per; ++m) {
-        float pm = sm.ps[m * L + q];
+        float pm = ps[m * L + q];
         float v = a1c[skew(hoff + n + m)];
         if (a.rs_bf16) {
           pm = bf16_round(pm);
@@ -766,13 +807,17 @@ __device__ void tail_resample_l(const TailArgs& a, const Smem& sm, int c0,
     }
 }
 
+// rows: the 8 channels' resample segments, channel c at rows + c·S1 (H
+// history slots, then the tile)
 __device__ __forceinline__ void tail_resample_any(const TailArgs& a,
-                                                  const Smem& sm, int c0,
-                                                  int t0, int tlen) {
+                                                  const float* ps,
+                                                  const float* rows, int S1,
+                                                  int H, int c0, int t0,
+                                                  int tlen) {
   if (a.L == 4)
-    tail_resample4(a, sm, c0, t0, tlen);
+    tail_resample4(a, ps, rows, S1, H, c0, t0, tlen);
   else
-    tail_resample_l(a, sm, c0, t0, tlen);
+    tail_resample_l(a, ps, rows, S1, H, c0, t0, tlen);
 }
 
 // Σ|y|² of channel sc from its lanes' shares, then its state rows out.
@@ -816,27 +861,65 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// The FIR's shared area: the tap copies and the window, in bf16 pieces (one
-// when the operands are bf16; float32 operands are split in a high and a
-// low piece, x ≈ hi + lo, and the product runs in three passes).
-//   G   [pieces][2 (re, im)][2 (shift 0, 1)][glen] bf16: G[kGPad + d] =
-//       h[OVP − d], zero outside the band; the second copy starts one
-//       element later
-//   win [pieces][2 (re, im)][kCB][Sb] bf16: column OVP + r holds input row
-//       t0 + r, the ov columns before it the history
+// Four 8×8 bf16 matrices, transposed: lanes 8j … 8j + 7 give the addresses
+// of matrix j's 8 rows (16 bytes each); d[j] holds, in lane 4g + i, its
+// elements (2i, g) and (2i + 1, g) — a B fragment of m16n8k16 when the
+// rows are k and the columns n. No memory clobber (as the mma): the rows
+// it reads are written only before a block barrier.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&d)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(addr));
+}
+
+// Smallest stride ≥ n that is ≡ 4 (mod 8): the 8 channel rows of a y
+// buffer then start in banks 4·odd·c apart, so the FIR's accumulator
+// stores (channels 2i, 2i + 1 of rows g, g + 8) and the resampler's window
+// loads (channel c, 4 samples 32 apart) hit 32 banks.
+__host__ __device__ inline int fir_stride(int n) { return (n + 3) / 8 * 8 + 4; }
+
+// The FIR entry's shared area, in order:
+//   G     [np][2 (re, im)][2 (shift 0, 1)][glen] bf16 tap copies: G[kGPad +
+//         d] = h[OVP − d], zero outside the band; the second copy starts one
+//         element later (np = 2: the taps' high and low bf16 pieces)
+//   ring  [nr][2 (re, im)][R] input rows of 8 channels, 16 bytes each: input
+//         row τ (τ < 0: the history from `head`) at slot τ mod R, as it lies
+//         in global memory when the rows are bf16; float32 rows land as
+//         channels 0-3 in piece 0 and 4-7 in piece 1 and are split in place
+//         into a high (piece 0) and, for the split FIR, a low (piece 1) bf16
+//         piece
+//   y     [2] buffers of [kCB][Sre] re rows (H resample-history slots, then
+//         the tile; the scans overwrite y.re with the gained audio in place)
+//         and [kCB][Sim] im rows
+//   P [per·L], powers [2·kPowN], segment folds [kCB][4][nsegs], hang ring
+//   [hang_tiles][kCB], the channels' carried state [kCB] (between tiles)
 struct FirLayout {
-  int OVP, glen, Sb, np;
-  __host__ __device__ FirLayout(int ov, int T, int pieces) {
+  int OVP, glen, R, np, nr, H, Sre, Sim, nsegs;
+  __host__ __device__ FirLayout(int ov, int per, int seg, bool split,
+                                bool x_bf16) {
     OVP = (ov + 15) / 16 * 16;
     glen = OVP + 64;
-    Sb = 2 * ((OVP + T) / 2 / 8 * 8 + 12);  // words a row ≡ 4 (mod 8)
-    np = pieces;
+    for (R = 256; R < OVP + kTile;) R *= 2;
+    np = split ? 2 : 1;
+    nr = split || !x_bf16 ? 2 : 1;
+    const Layout lay(per, kTile, seg);
+    H = lay.H;
+    Sre = fir_stride(skew(H + kTile));
+    Sim = fir_stride(skew(kTile));
+    nsegs = lay.nsegs;
   }
-  __host__ __device__ size_t g_piece() const { return 4 * (size_t)glen; }
-  __host__ __device__ size_t w_piece() const { return 2 * (size_t)kCB * Sb; }
-  // the area in floats, a multiple of 4: what follows stays 16-byte aligned
-  __host__ __device__ size_t floats() const {
-    return (np * (g_piece() + w_piece()) + 7) / 8 * 4;
+  __host__ __device__ size_t g_elems() const {
+    return (size_t)np * 4 * glen;
+  }
+  __host__ __device__ size_t ring_rows() const { return (size_t)nr * 2 * R; }
+  __host__ __device__ size_t ybuf() const { return (size_t)kCB * (Sre + Sim); }
+  __host__ __device__ size_t floats(int per, int L, int hang_tiles) const {
+    return g_elems() / 2 + 4 * ring_rows() + 2 * ybuf() + (size_t)per * L +
+           2 * kPowN + 4 * (size_t)kCB * nsegs + (size_t)hang_tiles * kCB +
+           kCB * sizeof(Carry) / sizeof(float);
   }
 };
 
@@ -846,151 +929,127 @@ __device__ __forceinline__ __nv_bfloat16 bf16_piece(float v, int piece) {
   return piece ? __float2bfloat16_rn(v - __bfloat162float(hi)) : hi;
 }
 
-// One tile's FIR on the tensor cores: ya/yb[c][t] = Σ_k h[k]·win[c][OVP+t−k]
-// for all T rows (rows past the tile's length read zeros). Warp w owns row
-// tiles w·T/128 … (w+1)·T/128 − 1, two at a time, so a B fragment loaded
-// for the upper tile serves the lower one a step later. kSplit: three
-// passes into the same accumulators, hi·hi + hi·lo + lo·hi.
+// Row `slot` of plane pl: the 8 channels' bf16 pieces of v (np of them).
+__device__ void put_row(uint4* ring, const FirLayout& fl, int pl, int slot,
+                        const float (&v)[kCB]) {
+  for (int pc = 0; pc < fl.np; ++pc) {
+    uint32_t wd[kCB / 2];
+#pragma unroll
+    for (int j = 0; j < kCB / 2; ++j)
+      wd[j] = __bfloat16_as_ushort(bf16_piece(v[2 * j], pc)) |
+              (uint32_t)__bfloat16_as_ushort(bf16_piece(v[2 * j + 1], pc))
+                  << 16;
+    ring[(size_t)(2 * pc + pl) * fl.R + slot] =
+        make_uint4(wd[0], wd[1], wd[2], wd[3]);
+  }
+}
+
+// One warp's share of a tile's FIR on the tensor cores: y[c][t] = Σ_k
+// h[k]·x[t0 + t − k] for its 32 rows t of the tile (rows past the chunk
+// read zeros).
+// Window column j of the Toeplitz product is input row τ0 + j (τ0 = t0 −
+// OVP), read from the ring by ldmatrix: one x4.trans a k-step gives the
+// re and im B fragments, each lane naming one of their 32 rows, so the
+// wrap of the ring is an address and no row is moved or transposed. The
+// warp's row tiles go two at a time: the B fragments loaded for the upper
+// tile serve the lower one a step later. kSplit: three passes into the same
+// accumulators, hi·hi + hi·lo + lo·hi.
 template <bool kCplx, bool kSplit>
-__device__ void fir_mma(const __nv_bfloat16* G, const __nv_bfloat16* win,
-                        const FirLayout& fl, const Smem& sm, int T) {
+__device__ void fir_tile(const __nv_bfloat16* G, const uint4* ring,
+                         const FirLayout& fl, float* yre, float* yim,
+                         int tau0) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int g = lane >> 2, tig = lane & 3;
-  const int Sw = fl.Sb / 2, gw = fl.glen / 2;
+  const int gw = fl.glen / 2, Rm = fl.R - 1;
   // the tap copy whose pairs are aligned for this row parity, as words
   const uint32_t* G0 = reinterpret_cast<const uint32_t*>(G) + (g & 1) * gw;
-  const uint32_t* W0 = reinterpret_cast<const uint32_t*>(win) + g * Sw + tig;
   // word of the pair at G[kGPad + Δ + 2·tig − g] for Δ = 0
   const int xw = (kGPad + 2 * tig - g - (g & 1)) / 2;
-  const int tiles = T / 16 / kCB;  // row tiles a warp (even: T % 256 == 0)
+  // this lane's ldmatrix row: plane lane / 16, row lane % 16 of a k-block
+  const uint32_t rbase =
+      static_cast<uint32_t>(__cvta_generic_to_shared(ring)) +
+      (lane >> 4) * fl.R * 16;
+  constexpr int tiles = kTile / 16 / kCB;  // row tiles a warp: a pair
   for (int rp = 0; rp < tiles; rp += 2) {
     const int m0 = (w * tiles + rp) * 16;
+    const int s0 = tau0 + m0 + (lane & 15);  // the lower tile's row, D = 0
     float ar[2][4], ai[2][4];
 #pragma unroll
     for (int q = 0; q < 2; ++q)
 #pragma unroll
       for (int i = 0; i < 4; ++i) ar[q][i] = ai[q][i] = 0.f;
-#pragma unroll
+    // passes not unrolled: unrolled, the split FIR's instances spilled
+    // 188-364 bytes and ran ~9 % slower
+#pragma unroll 1
     for (int pass = 0; pass < (kSplit ? 3 : 1); ++pass) {
       // taps: the low piece in the third pass; window: in the second
-      const uint32_t* Gr = G0 + (pass == 2 ? fl.g_piece() / 2 : 0);
+      const uint32_t* Gr = G0 + (pass == 2 ? 2 * fl.glen : 0);
       const uint32_t* Gi = Gr + 2 * gw;
-      const uint32_t* Wr = W0 + (pass == 1 ? fl.w_piece() / 2 : 0);
-      const uint32_t* Wi = Wr + kCB * Sw;
+      const uint32_t wb = rbase + (pass == 1 ? 2 * fl.R * 16 : 0);
       uint32_t hlo = Gr[xw - 4], hmid = Gr[xw];
       uint32_t ilo = 0, imid = 0;
       if (kCplx) {
         ilo = Gi[xw - 4];
         imid = Gi[xw];
       }
-      const uint32_t* wr = Wr + m0 / 2;
-      const uint32_t* wi = Wi + m0 / 2;
-      uint32_t br0 = wr[0], br1 = wr[4], bi0 = wi[0], bi1 = wi[4];
+      uint32_t b[4], c[4];
+      ldsm_x4_trans(b, wb + ((s0 & Rm) << 4));
       for (int D = 0; D <= fl.OVP; D += 16) {
         const int dw = D / 2;
         const uint32_t hhi = Gr[xw + dw + 4];
         // the upper row tile's window rows (= the lower one's a step later)
-        const uint32_t cr0 = wr[dw + 8], cr1 = wr[dw + 12];
-        const uint32_t ci0 = wi[dw + 8], ci1 = wi[dw + 12];
-        mma_bf16(ar[0], hmid, hlo, hhi, hmid, br0, br1);
-        mma_bf16(ai[0], hmid, hlo, hhi, hmid, bi0, bi1);
-        mma_bf16(ar[1], hmid, hlo, hhi, hmid, cr0, cr1);
-        mma_bf16(ai[1], hmid, hlo, hhi, hmid, ci0, ci1);
+        ldsm_x4_trans(c, wb + (((s0 + D + 16) & Rm) << 4));
+        mma_bf16(ar[0], hmid, hlo, hhi, hmid, b[0], b[1]);
+        mma_bf16(ai[0], hmid, hlo, hhi, hmid, b[2], b[3]);
+        mma_bf16(ar[1], hmid, hlo, hhi, hmid, c[0], c[1]);
+        mma_bf16(ai[1], hmid, hlo, hhi, hmid, c[2], c[3]);
         if (kCplx) {  // y.re −= h.im·x.im, y.im += h.im·x.re
           const uint32_t ihi = Gi[xw + dw + 4];
           const uint32_t kNeg = 0x80008000u;
           mma_bf16(ar[0], imid ^ kNeg, ilo ^ kNeg, ihi ^ kNeg, imid ^ kNeg,
-                   bi0, bi1);
-          mma_bf16(ai[0], imid, ilo, ihi, imid, br0, br1);
+                   b[2], b[3]);
+          mma_bf16(ai[0], imid, ilo, ihi, imid, b[0], b[1]);
           mma_bf16(ar[1], imid ^ kNeg, ilo ^ kNeg, ihi ^ kNeg, imid ^ kNeg,
-                   ci0, ci1);
-          mma_bf16(ai[1], imid, ilo, ihi, imid, cr0, cr1);
+                   c[2], c[3]);
+          mma_bf16(ai[1], imid, ilo, ihi, imid, c[0], c[1]);
           ilo = ihi;
           imid = Gi[xw + dw + 8];
         }
         hlo = hhi;
         hmid = Gr[xw + dw + 8];
-        br0 = cr0;
-        br1 = cr1;
-        bi0 = ci0;
-        bi1 = ci1;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) b[k] = c[k];
       }
     }
     // accumulator (row g | g + 8, channels 2·tig, 2·tig + 1)
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int t = m0 + q * 16 + g;
-      float* ya = sm.ya + 2 * tig * sm.lay.S;
-      float* yb = sm.yb + 2 * tig * sm.lay.S;
+      float* ya = yre + 2 * tig * fl.Sre;
+      float* yb = yim + 2 * tig * fl.Sim;
       ya[skew(t)] = ar[q][0];
-      ya[sm.lay.S + skew(t)] = ar[q][1];
+      ya[fl.Sre + skew(t)] = ar[q][1];
       ya[skew(t + 8)] = ar[q][2];
-      ya[sm.lay.S + skew(t + 8)] = ar[q][3];
+      ya[fl.Sre + skew(t + 8)] = ar[q][3];
       yb[skew(t)] = ai[q][0];
-      yb[sm.lay.S + skew(t)] = ai[q][1];
+      yb[fl.Sim + skew(t)] = ai[q][1];
       yb[skew(t + 8)] = ai[q][2];
-      yb[sm.lay.S + skew(t + 8)] = ai[q][3];
-    }
-  }
-}
-
-// The input rows of the tile at t0, [2 (re, im)][T][8 channels] as they lie
-// in global memory (16 bytes a row in bf16, 32 in f32), copied asynchronously
-// into `stage`; rows past the chunk are zeros. Thread i copies, and
-// `load_window` later reads, rows i, i + 256, …: a thread waits for its own
-// copies only.
-__device__ void prefetch_rows(char* stage, const void* x_re, const void* x_im,
-                              bool x_bf16, long plane, int n2, int col0,
-                              int t0, int T, int nf) {
-  const int rb = x_bf16 ? 16 : 32;
-  for (int i = threadIdx.x; i < 2 * T; i += kThreads) {
-    const int pl = i / T, row = i % T;
-    const bool in = t0 + row < nf;
-    const char* src =
-        static_cast<const char*>(pl ? x_im : x_re) +
-        (in ? ((plane + t0 + row) * n2 + col0) * (rb / kCB) : 0);
-    cp_async<16>(stage + (size_t)i * rb, src, in ? 16 : 0);
-    if (!x_bf16)
-      cp_async<16>(stage + (size_t)i * rb + 16, src + 16, in ? 16 : 0);
-  }
-  cp_async_commit();
-}
-
-// Fill the window's columns [OVP, OVP + T) from the staged input rows, in
-// fl.np bf16 pieces.
-__device__ void load_window(__nv_bfloat16* win, const FirLayout& fl,
-                            const char* stage, bool x_bf16, int T) {
-  cp_async_wait_all();
-  const int rb = x_bf16 ? 16 : 32;
-  for (int i = threadIdx.x; i < 2 * T; i += kThreads) {
-    const int pl = i / T, row = i % T;
-    float v[kCB];
-    if (x_bf16) {
-      alignas(16) __nv_bfloat16 b[kCB];
-      *reinterpret_cast<uint4*>(b) =
-          *reinterpret_cast<const uint4*>(stage + (size_t)i * rb);
-#pragma unroll
-      for (int c = 0; c < kCB; ++c) v[c] = __bfloat162float(b[c]);
-    } else {
-      const float4* p =
-          reinterpret_cast<const float4*>(stage + (size_t)i * rb);
-      const float4 q0 = p[0], q1 = p[1];
-      v[0] = q0.x, v[1] = q0.y, v[2] = q0.z, v[3] = q0.w;
-      v[4] = q1.x, v[5] = q1.y, v[6] = q1.z, v[7] = q1.w;
-    }
-    for (int pc = 0; pc < fl.np; ++pc) {
-      __nv_bfloat16* dst = win + pc * fl.w_piece() +
-                           (size_t)pl * kCB * fl.Sb + fl.OVP + row;
-#pragma unroll
-      for (int c = 0; c < kCB; ++c) dst[c * fl.Sb] = bf16_piece(v[c], pc);
+      yb[fl.Sim + skew(t + 8)] = ai[q][3];
     }
   }
 }
 
 // Three blocks an SM: 2560 channels are 320 blocks, one wave on 132 SMs
-// only at 3 blocks each (≤ 85 registers a thread). kFirBf16: the FIR's
+// only at 3 blocks each (80 registers a thread, the most the allocation
+// granularity leaves under 85; ≤ 76800 shared bytes). kFirBf16: the FIR's
 // operands are bf16 (one tensor-core pass); else float32, split in two bf16
 // pieces (three passes).
+//
+// A tile's work, with y double-buffered, between two block barriers: each
+// warp runs its share of the FIR of tile i + 1 into one y buffer, then its
+// channel's scans of tile i on the other, with no barrier between them;
+// after the second barrier the copies of tile i + 2's rows start and tile i
+// is resampled.
 template <bool kCplx, int kDemod, bool kFirBf16>
 __global__ void __launch_bounds__(kThreads, 3)
 chain_tail_fir_kernel(const void* __restrict__ x_re,
@@ -998,82 +1057,160 @@ chain_tail_fir_kernel(const void* __restrict__ x_re,
                       int n2,
                       const float* __restrict__ head_re,
                       const float* __restrict__ head_im,
-                      const float* __restrict__ h_re,
-                      const float* __restrict__ h_im, int n_taps,
-                      TailArgs a) {
+                      const float* __restrict__ w2, int ldw, int nb,
+                      int n_taps, TailArgs a) {
   extern __shared__ float4 smem_f4[];
-  float* smem = reinterpret_cast<float*>(smem_f4);
   const int ov = n_taps - 1;
-  const int T = tile_rows(ov);
-  const FirLayout fl(ov, T, kFirBf16 ? 1 : 2);
-  __nv_bfloat16* G = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* win = G + fl.np * fl.g_piece();
-  const Smem sm(smem + fl.floats(), a.per, a.L, T, a.seg);
+  constexpr int T = kTile;
+  const bool xb = x_bf16 != 0;
+  const FirLayout fl(ov, a.per, a.seg, !kFirBf16, xb);
+  __nv_bfloat16* G = reinterpret_cast<__nv_bfloat16*>(smem_f4);
+  uint4* ring = reinterpret_cast<uint4*>(G + fl.g_elems());
+  float* ybase = reinterpret_cast<float*>(ring + fl.ring_rows());
+  float* ps = ybase + 2 * fl.ybuf();
+  float* pows = ps + a.per * a.L;
+  float* folds = pows + 2 * kPowN;
+  float* hring = folds + 4 * kCB * fl.nsegs;
+  Carry* carry = reinterpret_cast<Carry*>(hring + a.hang_tiles * kCB);
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int c0 = blockIdx.x * kCB;          // first planar channel
   const long plane = (long)(c0 / n2) * nf;  // k1 · nf
   const int col0 = c0 % n2;
   const long C = a.C;
+  const int Rm = fl.R - 1;
+  // warp w's rows of buffer b: re (H history slots, then the tile), im
+  auto re_row = [=](int b) { return ybase + b * fl.ybuf() + w * fl.Sre; };
+  auto im_row = [=](int b) {
+    return ybase + b * fl.ybuf() + kCB * fl.Sre + w * fl.Sim;
+  };
 
-  // tap copies (zero padded), the window's history, zeros before it
+  // tap copies (zero padded), the window's history, the tables, the state
   for (int i = tid; i < fl.np * 4 * fl.glen; i += kThreads) {
     const int pc = i / (4 * fl.glen), part = i / fl.glen % 4;
     const int pos = i % fl.glen;
     const int dd = pos + (part & 1) - kGPad;  // d of this element
     const int k = fl.OVP - dd;                // tap index
     float v = 0.f;
-    if (k >= 0 && k <= ov && (part < 2 || kCplx))
-      v = part < 2 ? h_re[k] : h_im[k];
+    if (k >= 0 && k <= ov && (part < 2 || kCplx))  // w2's row nb − k
+      v = w2[(long)(nb - k) * ldw + (part < 2 ? 0 : ldw / 2)];
     G[i] = bf16_piece(v, pc);
   }
-  for (int i = tid; i < fl.np * 2 * kCB * fl.OVP; i += kThreads) {
-    const int pc = i / (2 * kCB * fl.OVP), pl = i / (kCB * fl.OVP) % 2;
-    const int c = i / fl.OVP % kCB, col = i % fl.OVP;
-    const int row = col - (fl.OVP - ov);  // history row, oldest first
-    float v = 0.f;
-    if (row >= 0) v = (pl ? head_im : head_re)[(long)row * C + c0 + c];
-    win[pc * fl.w_piece() + (size_t)(pl * kCB + c) * fl.Sb + col] =
-        bf16_piece(v, pc);
+  for (int i = tid; i < 2 * fl.OVP; i += kThreads) {
+    const int pl = i / fl.OVP, tau = i % fl.OVP - fl.OVP;
+    const int row = tau + ov;  // head row, oldest first
+    float v[kCB];
+#pragma unroll
+    for (int c = 0; c < kCB; ++c)
+      v[c] = row >= 0 ? (pl ? head_im : head_re)[(long)row * C + c0 + c]
+                      : 0.f;
+    put_row(ring, fl, pl, tau & Rm, v);
   }
-  Carry cr;
-  tail_init(a, sm, cr, c0);
-  // A tile's input rows are staged in the passband rows' space (16-byte
-  // aligned; ≥ 64·T bytes), which is free from the end of the scans to the
-  // FIR of the next tile: the copies run under the resampler.
-  char* stage = reinterpret_cast<char*>(
-      (reinterpret_cast<uintptr_t>(sm.ya) + 15) & ~uintptr_t(15));
-  prefetch_rows(stage, x_re, x_im, x_bf16 != 0, plane, n2, col0, 0, T, nf);
+  load_tables(a, ps, pows, tid, kThreads);
+  for (int k = tid; k < a.hang_tiles * kCB; k += kThreads)
+    hring[k] = kNegBig;
+  // a channel's state stays in shared memory between its scans (the same
+  // in every lane, but for the lane's share of the power sum), so the
+  // FIR's registers do not hold it
+  float pw = 0.f;
+  {
+    Carry cr;
+    load_carry(a, cr, re_row(0), fl.H, c0 + w, lane);
+    if (lane == 0) carry[w] = cr;
+  }
 
-  int tlen_prev = 0;
-  for (int t0 = 0; t0 < nf; t0 += T) {
-    const int tlen = min(T, nf - t0);
-    if (t0 > 0) {
-      // this tile's FIR history = the previous tile's last input rows
-      const int hw = fl.OVP / 2, Sw = fl.Sb / 2;
-      uint32_t* ww = reinterpret_cast<uint32_t*>(win);
-      for (int i = tid; i < fl.np * 2 * kCB * hw; i += kThreads) {
-        uint32_t* rowp = ww + (size_t)(i / hw) * Sw;
-        rowp[i % hw] = rowp[i % hw + T / 2];
-      }
-      shift_history(a, sm, tlen_prev);
-      __syncthreads();
+  // The input rows of the tile at t0 into their ring slots, as 16-byte
+  // asynchronous copies (rows past the chunk: zeros). Thread i copies, and
+  // `land` splits, rows i, i + 256, …: a thread waits for its own copies.
+  auto fetch = [=](int t0) {
+    const int rb = xb ? 16 : 32;
+    // this loop and land's stay rolled (two rows a thread): unrolled, the
+    // FIR instances spilled up to 104 bytes and the quality tier ran ~7 %
+    // slower
+#pragma unroll 1
+    for (int i = tid; i < 2 * T; i += kThreads) {
+      const int pl = i / T, row = i % T, slot = (t0 + row) & Rm;
+      const bool in = t0 + row < nf;
+      const char* src = static_cast<const char*>(pl ? x_im : x_re) +
+                        (in ? ((plane + t0 + row) * n2 + col0) * (rb / kCB)
+                            : 0);
+      cp_async<16>(ring + (size_t)pl * fl.R + slot, src, in ? 16 : 0);
+      if (!xb)
+        cp_async<16>(ring + (size_t)(2 + pl) * fl.R + slot, src + 16,
+                     in ? 16 : 0);
     }
-    load_window(win, fl, stage, x_bf16 != 0, T);
+    cp_async_commit();
+  };
+  // Wait for this thread's copies of the tile at t0; float32 rows become
+  // bf16 pieces in place; bf16 rows of the split FIR get a zero low piece.
+  auto land = [=](int t0) {
+    cp_async_wait_all();
+    if (xb && fl.np == 1) return;
+#pragma unroll 1
+    for (int i = tid; i < 2 * T; i += kThreads) {
+      const int pl = i / T, slot = (t0 + i % T) & Rm;
+      uint4* lo = ring + (size_t)(2 + pl) * fl.R + slot;
+      if (xb) {
+        *lo = make_uint4(0u, 0u, 0u, 0u);
+        continue;
+      }
+      const float4 q0 = *reinterpret_cast<const float4*>(
+                       ring + (size_t)pl * fl.R + slot),
+                   q1 = *reinterpret_cast<const float4*>(lo);
+      const float v[kCB] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+      put_row(ring, fl, pl, slot, v);
+    }
+  };
+
+  fetch(0);
+  land(0);
+  __syncthreads();
+  fir_tile<kCplx, !kFirBf16>(G, ring, fl, ybase + skew(fl.H),
+                             ybase + kCB * fl.Sre, -fl.OVP);
+  __syncthreads();  // the history slots are free: the next rows go there
+  if (T < nf) fetch(T);
+
+  for (int t0 = 0, b = 0;; t0 += T, b ^= 1) {
+    const int tlen = min(T, nf - t0);
+    const bool more = t0 + T < nf;
+    if (more) land(t0 + T);
     __syncthreads();
-    fir_mma<kCplx, !kFirBf16>(G, win, fl, sm, T);
+    if (more) {
+      float* yn = ybase + (b ^ 1) * fl.ybuf();
+      fir_tile<kCplx, !kFirBf16>(G, ring, fl, yn + skew(fl.H),
+                                 yn + kCB * fl.Sre, t0 + T - fl.OVP);
+    }
+    {
+      float* re = re_row(b);
+      float* y = re + skew(fl.H);
+      float* pb = folds + 4 * w * fl.nsegs;
+      const int n = fl.nsegs;
+      const ScanRows rw{y, (int)(im_row(b) - y), re, fl.H, pb, pb + n,
+                        pb + 2 * n, pb + 3 * n, hring + w, kCB};
+      Carry cr = carry[w];
+      cr.pw = pw;
+      tail_scan<kDemod>(a, pows, rw, cr, t0, tlen, 1);
+      pw = cr.pw;
+      __syncwarp();
+      if (lane == 0) carry[w] = cr;
+      if (more) {  // its last per − 1 gained samples: the next history
+        float* nx = re_row(b ^ 1);
+        const int k = a.per - 1;
+        for (int m = lane; m < k; m += 32)
+          nx[skew(fl.H - k + m)] = re[skew(fl.H + tlen - k + m)];
+      }
+    }
     __syncthreads();
-    tail_scan<kDemod>(a, sm.pows, block_rows(sm, tid >> 5), cr, t0, tlen,
-                      1);
-    __syncthreads();
-    if (t0 + T < nf)
-      prefetch_rows(stage, x_re, x_im, x_bf16 != 0, plane, n2, col0, t0 + T,
-                    T, nf);
-    tail_resample_any(a, sm, c0, t0, tlen);
-    tlen_prev = tlen;
-    __syncthreads();
+    if (t0 + 2 * T < nf) fetch(t0 + 2 * T);
+    tail_resample_any(a, ps, ybase + b * fl.ybuf(), fl.Sre, fl.H, c0, t0,
+                      tlen);
+    if (!more) {
+      Carry cr = carry[w];
+      cr.pw = pw;
+      finish_channel(a, cr, re_row(b), fl.H, c0 + w, tlen, 1);
+      break;
+    }
   }
-  tail_finish(a, sm, cr, c0, tlen_prev, 1);
 }
 
 template <int kDemod>
@@ -1116,7 +1253,7 @@ chain_tail_am_kernel(const float* __restrict__ y_re,
     __syncthreads();
     if (a.cluster) cluster_sync();  // the line's four blocks store together
     if (t0 + kTile < nf) prefetch(t0 + kTile);
-    tail_resample_any(a, sm, c0, t0, tlen);
+    tail_resample_any(a, sm.ps, sm.a1, sm.lay.S1, sm.lay.H, c0, t0, tlen);
     tlen_prev = tlen;
     __syncthreads();
   }
@@ -1354,37 +1491,36 @@ cudaError_t launch_info(void (*kern)(Params...), int blocks, int threads,
   return cudaSuccess;
 }
 
-// The FIR entry's shared bytes a block.
-size_t fir_smem(int n_taps, bool fir_bf16, const TailArgs& a) {
+// The FIR entry's shared bytes a block (x_bf16: bf16 input rows).
+size_t fir_smem(int n_taps, bool fir_bf16, bool x_bf16, const TailArgs& a) {
   const int ov = n_taps - 1;
-  const int T = tile_rows(ov);
-  const size_t fir = FirLayout(ov, T, fir_bf16 ? 1 : 2).floats();
-  const Layout lay(a.per, T, a.seg);
-  return (fir + lay.floats(a.per, a.L, a.hang_tiles)) * sizeof(float);
+  return FirLayout(ov, a.per, a.seg, !fir_bf16, x_bf16)
+             .floats(a.per, a.L, a.hang_tiles) *
+         sizeof(float);
 }
 
 template <bool kCplx, int kDemod, bool kFirBf16>
 cudaError_t launch_fir(const void* x_re, const void* x_im, int x_bf16,
                        int n1, int nf, int n2, const float* head_re,
-                       const float* head_im,
-                       const float* h_re, const float* h_im, int n_taps,
-                       const TailArgs& a, cudaStream_t stream) {
-  const size_t smem = fir_smem(n_taps, kFirBf16, a);
+                       const float* head_im, const float* w2, int ldw,
+                       int nb, int n_taps, const TailArgs& a,
+                       cudaStream_t stream) {
+  const size_t smem = fir_smem(n_taps, kFirBf16, x_bf16 != 0, a);
   return launch_tail(chain_tail_fir_kernel<kCplx, kDemod, kFirBf16>,
                      n1 * n2 / kCB, kThreads, smem, stream, a.cluster != 0,
-                     x_re, x_im, x_bf16, nf, n2, head_re, head_im, h_re,
-                     h_im, n_taps, a);
+                     x_re, x_im, x_bf16, nf, n2, head_re, head_im, w2, ldw,
+                     nb, n_taps, a);
 }
 
 template <bool kCplx, bool kFirBf16>
 cudaError_t fir_by_demod(int demod, const void* x_re, const void* x_im,
                          int x_bf16, int n1, int nf, int n2,
                          const float* head_re, const float* head_im,
-                         const float* h_re, const float* h_im, int n_taps,
+                         const float* w2, int ldw, int nb, int n_taps,
                          const TailArgs& a, cudaStream_t s) {
 #define SSDR_FIR(D)                                                        \
   return launch_fir<kCplx, D, kFirBf16>(x_re, x_im, x_bf16, n1, nf, n2,   \
-                                        head_re, head_im, h_re, h_im,     \
+                                        head_re, head_im, w2, ldw, nb,    \
                                         n_taps, a, s)
   switch (demod) {
     case kAM:
@@ -1466,8 +1602,10 @@ extern "C" {
 int chain_tail_channels_per_block() { return kCB; }
 
 // x_*: raw channelizer planes [n1, nf, n2], f32 (x_bf16 = 0) or bf16;
-// head_*: [n_taps−1, C] input history, planar channel order; h_*: taps
-// [n_taps] (h_im read only when fir_complex); fir_bf16: round the FIR's
+// head_*: [n_taps−1, C] input history, planar channel order; w2: the
+// passband's Toeplitz matrix, contiguous rows of ldw floats, tap k = w2's
+// row nb − k at column 0 (re) and, when fir_complex (the complex-folded
+// matrix), at column ldw/2 (im); fir_bf16: round the FIR's
 // operands to bf16 and run it on the tensor cores; P: [per, L]; params:
 // [9] = r_dc | nbfm scale, decay/sample, thresh, slope, target, man_gain,
 // agc_on, attack, hang_on; st_in/st_out: [4 + per, C] state rows (dc_x |
@@ -1477,19 +1615,20 @@ int chain_tail_channels_per_block() { return kCB; }
 // 0 = no hang.
 int chain_tail_fir(const void* x_re, const void* x_im, int x_bf16, int n1,
                    int nf, int n2, const float* head_re, const float* head_im,
-                   const float* h_re, const float* h_im, int n_taps,
+                   const float* w2, int ldw, int nb, int n_taps,
                    int fir_complex, int fir_bf16, const float* P, int per,
                    int L, int rs_bf16, const float* params, int demod,
                    int seg, int hang_tiles, const float* st_in, float* st_out,
                    float* audio, void* stream) {
   const TailArgs a{P, per, L, rs_bf16, params, seg, hang_tiles, st_in,
                    st_out, n1 * n2, audio, (long)n1 * n2, 1L, 0};
-  if (n2 % kCB || n_taps < 2 || !tail_args_ok(a, nf))
+  if (n2 % kCB || n_taps < 2 || nb < n_taps - 1 || ldw < 1 ||
+      !tail_args_ok(a, nf))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SSDR_TAIL(CP, FB)                                                  \
   return (int)fir_by_demod<CP, FB>(demod, x_re, x_im, x_bf16, n1, nf, n2,  \
-                                   head_re, head_im, h_re, h_im, n_taps,   \
+                                   head_re, head_im, w2, ldw, nb, n_taps,  \
                                    a, s)
   switch ((fir_complex ? 2 : 0) | (fir_bf16 ? 1 : 0)) {
     case 0: SSDR_TAIL(false, false);
@@ -1561,7 +1700,9 @@ int chain_tail_am_c(const void* y, long y_sc, int nf, int C, const float* P,
 }
 
 // What an entry launches for C channels, as launch_info: entry 0 the FIR
-// entry (n_taps taps; variant = demod | fir_complex << 2 | fir_bf16 << 3),
+// entry (n_taps taps; variant = demod | fir_complex << 2 | fir_bf16 << 3 |
+// x_bf16 << 4, x_bf16: bf16 input rows, as the fast planar path gives
+// them, else float32: the quality tier's and the 2-D source's),
 // 1 the 8-channel non-FIR entry (clusters of kCluster), 2 the chain-major
 // one (both AM).
 int chain_tail_launch(int entry, int C, int n_taps, int variant, int per,
@@ -1572,8 +1713,8 @@ int chain_tail_launch(int entry, int C, int n_taps, int variant, int per,
     return (int)cudaErrorInvalidValue;
   switch (entry) {
     case 0: {
-      const bool bf16 = variant >> 3 & 1;
-      const size_t smem = fir_smem(n_taps, bf16, a);
+      const bool bf16 = variant >> 3 & 1, xb = variant >> 4 & 1;
+      const size_t smem = fir_smem(n_taps, bf16, xb, a);
       const int demod = variant & 3, blocks = C / kCB;
       switch (variant >> 2 & 3) {
         case 0: return (int)fir_info<false, false>(demod, blocks, smem, out);

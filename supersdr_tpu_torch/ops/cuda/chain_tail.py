@@ -26,7 +26,11 @@ Layouts on the card. The two time-major entries (`chain_tail_fir`,
 `chain_tail_am`) run blocks of 8 channels and store the audio's rows 8
 channels (32 bytes) at a time by element strides, any layout; their
 resampler is register-blocked (a thread: one channel, 4 consecutive input
-samples). `chain_tail_am` reads its planes by element strides and launches
+samples). `chain_tail_fir` keeps the raw planes' rows of 8 channels as
+they lie (16 bytes of bf16 a time step; float32 rows split in place into
+two bf16 pieces) in a ring that its tensor-core FIR reads with
+`ldmatrix.trans`, and runs the FIR of the next tile beside the scans of
+this one (two y buffers). `chain_tail_am` reads its planes by element strides and launches
 clusters of 4 blocks, which keep step tile by tile so the four 32-byte
 pieces of a 128-byte line are written close together. `chain_tail_am_c`
 reads the complex rows in 16-byte pieces (`wide_rows_ok`), a warp a
@@ -250,20 +254,17 @@ def _launch_fir(x_r, x_i, head_r, head_i, st_rows, params, w2, P, *,
                          "block")
     PER, L = P.shape
     fir_complex = w2.shape[1] != B
-    # taps back out of the Toeplitz matrix: Wt[p − k, 0] = h[k]
-    rows = n_prev * B - torch.arange(n_taps, device=w2.device)
-    h_re = w2[rows, 0].contiguous()
-    h_im = w2[rows, B].contiguous() if fir_complex else h_re
-    if fir_bf16:
-        h_re, h_im = _bf16(h_re), _bf16(h_im)
     audio = torch.empty(nf * L, C, dtype=torch.float32, device=x_r.device)
     st_out = torch.empty_like(st_rows)
     p = ctypes.c_void_p
+    # the kernel reads the taps out of the Toeplitz matrix, Wt[p − k, 0] =
+    # h[k] (im at column B of the complex-folded one), and rounds them to
+    # bf16 itself: no small launches in front of it
     err = lib.chain_tail_fir(
         p(x_r.data_ptr()), p(x_i.data_ptr()),
         int(x_r.dtype == torch.bfloat16), n1, nf, n2,
-        p(head_r.data_ptr()), p(head_i.data_ptr()), p(h_re.data_ptr()),
-        p(h_im.data_ptr()), n_taps, int(fir_complex), int(fir_bf16),
+        p(head_r.data_ptr()), p(head_i.data_ptr()), p(w2.data_ptr()),
+        w2.shape[1], n_prev * B, n_taps, int(fir_complex), int(fir_bf16),
         p(P.data_ptr()), PER, L, int(rs_bf16), p(params.data_ptr()),
         DEMODS[demod], tile_t, hang_tiles_for(hang_window, tile_t),
         p(st_rows.data_ptr()), p(st_out.data_ptr()), p(audio.data_ptr()),
