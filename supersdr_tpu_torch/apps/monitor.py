@@ -23,6 +23,14 @@ given, else the current CUDA device). Each chunk's audio and RSSI stay on
 the device: only the RSSI row means (n_chan floats) come to the host every
 chunk, and the selected row when it is recorded or asked for (at 2560
 channels × 16128 frames the whole audio is 660 MB a chunk).
+
+Under a running `torch.profiler` (`utils/profiling.span`), `push` records
+the span `monitor.push`, a root with a chunk identifier of its own, and
+inside it `monitor.process` (the process function's call) and
+`monitor.rssi_fetch` (the RSSI means to the host); `selected_audio`
+records `monitor.selected_audio` under the last pushed chunk's identifier,
+with `monitor.audio_fetch` (the row to the host) inside. Each fetch of a
+device tensor counts as a host sync (`profiling.count_sync`).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch
 from supersdr_tpu_torch.device import default_device
 from supersdr_tpu_torch.io import wav as wav_io
 from supersdr_tpu_torch.runtime import wideband
+from supersdr_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -56,6 +65,7 @@ class MonitorCore:
     recorder: object = field(default=None, repr=False)
     device: torch.device | str | None = None
     _last_audio: torch.Tensor = field(default=None, repr=False)
+    _chunk_id: int | None = field(default=None, repr=False)
 
     def __post_init__(self):
         cfg = self.cfg
@@ -87,26 +97,34 @@ class MonitorCore:
     def push(self, iq_chunk) -> None:
         """One wideband chunk through the pipeline; updates the RSSI
         table, the activity gates, and the selected-channel recording."""
-        self.state, audio, rssi = self.process_fn(self.params, self.state,
-                                                  iq_chunk)
-        if self.cfg.time_major:
-            audio = audio.T                 # -> [rows, time], a view
-        r = rssi.float()
-        r = self._host(r.mean(dim=-1) if r.ndim > 1 else r)
-        self.rssi_rows = ((1.0 - self.ewma) * self.rssi_rows
-                          + self.ewma * r).astype(np.float32)
-        opens = self.rssi_rows >= self.thresh_db
-        closes = self.rssi_rows < self.thresh_db - self.hyst_db
-        self.open_rows = (self.open_rows | opens) & ~closes
-        self.chunks += 1
-        self._last_audio = audio
-        if self.recorder is not None:
-            self.recorder.append(np.clip(self.selected_audio(), -1, 1))
+        with profiling.span("monitor.push"):
+            self._chunk_id = profiling.current_chunk()
+            with profiling.span("monitor.process"):
+                self.state, audio, rssi = self.process_fn(
+                    self.params, self.state, iq_chunk)
+            if self.cfg.time_major:
+                audio = audio.T                 # -> [rows, time], a view
+            r = rssi.float()
+            r = r.mean(dim=-1) if r.ndim > 1 else r
+            with profiling.span("monitor.rssi_fetch"):
+                r = self._host(r)
+            self.rssi_rows = ((1.0 - self.ewma) * self.rssi_rows
+                              + self.ewma * r).astype(np.float32)
+            opens = self.rssi_rows >= self.thresh_db
+            closes = self.rssi_rows < self.thresh_db - self.hyst_db
+            self.open_rows = (self.open_rows | opens) & ~closes
+            self.chunks += 1
+            self._last_audio = audio
+            if self.recorder is not None:
+                self.recorder.append(np.clip(self.selected_audio(), -1, 1))
 
     @staticmethod
     def _host(t: torch.Tensor) -> np.ndarray:
         """A device tensor's values on the host, as float32 numpy (the
-        only crossings of `push`)."""
+        only crossings of `push`); a fetch from a card counts as a host
+        sync."""
+        if t.device.type != "cpu":
+            profiling.count_sync()
         return t.float().cpu().numpy()
 
     # -------- queries
@@ -123,9 +141,12 @@ class MonitorCore:
 
     def selected_audio(self) -> np.ndarray | None:
         """Selected channel's audio from the last chunk."""
-        if self._last_audio is None:
-            return None
-        return self._host(self._last_audio[self.selected])
+        with profiling.span("monitor.selected_audio", self._chunk_id):
+            if self._last_audio is None:
+                return None
+            row = self._last_audio[self.selected]
+            with profiling.span("monitor.audio_fetch"):
+                return self._host(row)
 
     # -------- control
 

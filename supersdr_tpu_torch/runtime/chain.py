@@ -18,6 +18,13 @@ else runs the plain ops below, which is the reference's own XLA path. The
 wideband time-major tiers call `process_tail_tmajor` with the channelizer's
 raw planes or its time-major planes (`chain_tail_fir`, passband fused in),
 or with a filtered passband (`chain_tail_am`).
+
+Under a running `torch.profiler` (`utils/profiling.span`),
+`process_tail_tmajor` records its chunk as the span `chain.tail` with three
+children: `chain.tail.pack` (the kernel's inputs: the row order's inverse,
+the state rows, the history, the parameter vector), `chain.tail.launch`
+(the kernel's call) and `chain.tail.unpack` (the RSSI in dB, the squelch,
+the state from the rows).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from supersdr_tpu_torch.ops import (fir_matmul, firdesign, mixer,
 from supersdr_tpu_torch.ops import smeter
 from supersdr_tpu_torch.ops import squelch as squelch_ops
 from supersdr_tpu_torch.ops.cuda import chain_tail
+from supersdr_tpu_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -407,64 +415,77 @@ def process_tail_tmajor(cfg: ChainConfig, params: ChainParams,
     `os_carry` is the new input history (bin order) for the next chunk.
     The squelch gates the audio from the in-kernel RSSI. Returns (state,
     audioT [chunk·L, C], rssi [C, 1])."""
-    if cfg.chunk != cfg.os_block:
-        raise ValueError("time-major tail needs os_block == chunk")
-    if (yT is not None) + (fir_x is not None) + (fir_x3 is not None) != 1:
-        raise ValueError("give exactly one of yT, fir_x and fir_x3")
-    order = inv = None
-    if fir_x3 is not None:
-        if chan_order is None:
-            raise ValueError("fir_x3 needs chan_order")
-        order = chan_order
-        inv = torch.argsort(order)
-    PER = cfg.interp_plan.per
-    tile = _tail_tile(cfg.chunk, cfg.n_taps)
-    hang = _tail_hang_window(cfg)
-    if yT is not None:
-        audioT, st2 = chain_tail.chain_tail_am(
-            yT.re, yT.im, _state_rows(cfg, state),
-            _tail_params_vec(params, cfg), params.P_interp, tile_t=tile,
-            demod=_tail_demod(cfg), accum_pow=True, hang_window=hang,
-            audio_layout="time")
-    else:
-        if params.W_tailpass is None:
-            raise ValueError("params.W_tailpass missing (passband_impl "
-                             "must be 'matmul' with a fusable FIR block)")
-        raw_r, raw_i = fir_x3 if fir_x3 is not None \
-            else (fir_x.re[None], fir_x.im[None])
-        hist_r, hist_i = state.os_carry.re, state.os_carry.im
-        if order is not None:
-            hist_r, hist_i = hist_r[order], hist_i[order]
-        B, n_prev = fir_matmul.tail_fir_block(cfg.chunk, cfg.n_taps, tile)
-        rb = 32 if tile % 32 == 0 else (16 if tile % 16 == 0 else 0)
-        audioT, st2 = chain_tail.chain_tail_fir(
-            raw_r, raw_i, hist_r.T.contiguous(), hist_i.T.contiguous(),
-            _state_rows(cfg, state, order), _tail_params_vec(params, cfg),
-            params.W_tailpass, params.P_interp, n_taps=cfg.n_taps, B=B,
-            n_prev=n_prev, tile_t=tile, demod=_tail_demod(cfg),
-            fir_bf16=cfg.passband_precision == "default",
-            rs_bf16=(cfg.resample_impl == "matmul" and rb != 0
-                     and cfg.resample_precision == "default"),
-            hang_window=hang)
-    if audio_dtype != torch.float32:
-        audioT = audioT.to(audio_dtype)
-    pw = st2[4 + PER - 1] / cfg.chunk
-    rssi = torch.clamp_min(
-        10.0 * torch.log10(torch.clamp_min(pw, 1e-30)) + smeter.DEFAULT_CAL_DB,
-        smeter.RSSI_FLOOR_DB)[:, None]
-    sq_state = state.squelch
-    if cfg.squelch_enabled:
-        sq_in = state.squelch if order is None else \
-            squelch_ops.SquelchState(*(v[order] for v in state.squelch))
-        sq_state, audioT = squelch_ops.apply_squelch_tmajor(
-            _squelch_tail(params, cfg), sq_in, audioT, rssi[:, 0])
-        if inv is not None:
-            sq_state = squelch_ops.SquelchState(*(v[inv] for v in sq_state))
-    dstate, astate, icarry = _unpack_rows(cfg, state, st2, inv)
-    new_state = ChainState(phase=phase, os_carry=os_carry, demod=dstate,
-                           agc=astate, interp_carry=icarry,
-                           squelch=sq_state)
-    return new_state, audioT, rssi
+    with profiling.span("chain.tail"):
+        if cfg.chunk != cfg.os_block:
+            raise ValueError("time-major tail needs os_block == chunk")
+        if (yT is not None) + (fir_x is not None) + (fir_x3 is not None) != 1:
+            raise ValueError("give exactly one of yT, fir_x and fir_x3")
+        order = inv = None
+        with profiling.span("chain.tail.pack"):
+            if fir_x3 is not None:
+                if chan_order is None:
+                    raise ValueError("fir_x3 needs chan_order")
+                order = chan_order
+                inv = torch.argsort(order)
+            PER = cfg.interp_plan.per
+            tile = _tail_tile(cfg.chunk, cfg.n_taps)
+            hang = _tail_hang_window(cfg)
+            if yT is not None:
+                rows = _state_rows(cfg, state)
+                pvec = _tail_params_vec(params, cfg)
+            else:
+                if params.W_tailpass is None:
+                    raise ValueError("params.W_tailpass missing "
+                                     "(passband_impl must be 'matmul' "
+                                     "with a fusable FIR block)")
+                raw_r, raw_i = fir_x3 if fir_x3 is not None \
+                    else (fir_x.re[None], fir_x.im[None])
+                hist_r, hist_i = state.os_carry.re, state.os_carry.im
+                if order is not None:
+                    hist_r, hist_i = hist_r[order], hist_i[order]
+                B, n_prev = fir_matmul.tail_fir_block(cfg.chunk, cfg.n_taps,
+                                                      tile)
+                rb = 32 if tile % 32 == 0 else (16 if tile % 16 == 0 else 0)
+                hist_r, hist_i = hist_r.T.contiguous(), hist_i.T.contiguous()
+                rows = _state_rows(cfg, state, order)
+                pvec = _tail_params_vec(params, cfg)
+        with profiling.span("chain.tail.launch"):
+            if yT is not None:
+                audioT, st2 = chain_tail.chain_tail_am(
+                    yT.re, yT.im, rows, pvec, params.P_interp, tile_t=tile,
+                    demod=_tail_demod(cfg), accum_pow=True, hang_window=hang,
+                    audio_layout="time")
+            else:
+                audioT, st2 = chain_tail.chain_tail_fir(
+                    raw_r, raw_i, hist_r, hist_i, rows, pvec,
+                    params.W_tailpass, params.P_interp, n_taps=cfg.n_taps, B=B,
+                    n_prev=n_prev, tile_t=tile, demod=_tail_demod(cfg),
+                    fir_bf16=cfg.passband_precision == "default",
+                    rs_bf16=(cfg.resample_impl == "matmul" and rb != 0
+                             and cfg.resample_precision == "default"),
+                    hang_window=hang)
+        with profiling.span("chain.tail.unpack"):
+            if audio_dtype != torch.float32:
+                audioT = audioT.to(audio_dtype)
+            pw = st2[4 + PER - 1] / cfg.chunk
+            rssi = torch.clamp_min(
+                10.0 * torch.log10(torch.clamp_min(pw, 1e-30))
+                + smeter.DEFAULT_CAL_DB, smeter.RSSI_FLOOR_DB)[:, None]
+            sq_state = state.squelch
+            if cfg.squelch_enabled:
+                sq_in = state.squelch if order is None else \
+                    squelch_ops.SquelchState(
+                        *(v[order] for v in state.squelch))
+                sq_state, audioT = squelch_ops.apply_squelch_tmajor(
+                    _squelch_tail(params, cfg), sq_in, audioT, rssi[:, 0])
+                if inv is not None:
+                    sq_state = squelch_ops.SquelchState(
+                        *(v[inv] for v in sq_state))
+            dstate, astate, icarry = _unpack_rows(cfg, state, st2, inv)
+        new_state = ChainState(phase=phase, os_carry=os_carry, demod=dstate,
+                               agc=astate, interp_carry=icarry,
+                               squelch=sq_state)
+        return new_state, audioT, rssi
 
 
 def process_traced(cfg: ChainConfig, params: ChainParams, state: ChainState,

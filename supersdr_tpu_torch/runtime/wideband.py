@@ -28,6 +28,13 @@ the reference's own predicates:
 `audio_channel_order` maps rows to PFB bins (identity off the planar
 tier) and `channel_freqs` is row-aligned. The state is the same on every
 tier, so a stream may change tier between chunks.
+
+Under a running `torch.profiler`, `process` records its host work as spans
+(`utils/profiling.span`): `wideband.process` around the chunk, and inside
+it `wideband.ingest` (the input to the device), `wideband.plan` (the tier
+and what the configuration derives), `wideband.channelize` (the
+channelizer's call), `wideband.history` (the next chunk's FIR history,
+where the tier cuts it) and the chain's `chain.tail` or `chain.process`.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from supersdr_tpu_torch.device import default_device
 from supersdr_tpu_torch.ops import channelizer, cx, fir_matmul
 from supersdr_tpu_torch.ops.cuda import channelize_fused, pfb_fold
 from supersdr_tpu_torch.runtime import chain
+from supersdr_tpu_torch.utils import profiling
 
 # The reference's two tuned tiers, by the same names and values; both run
 # the planar path. "fast": bf16 stage-B operands and bf16 raw planes, bf16
@@ -296,9 +304,21 @@ def _is_i16_pair(iq) -> bool:
     return True
 
 
+def _count_crossings(planes, device: torch.device) -> None:
+    """Count (`profiling.count_sync`) each plane that reaches `device`
+    by a copy from the host, which the host waits for."""
+    if profiling.recording() and device.type != "cpu":
+        for p in planes:
+            if not (isinstance(p, torch.Tensor) and p.device == device):
+                profiling.count_sync()
+
+
 def _coerce(iq, device):
     if _is_i16_pair(iq):
+        _count_crossings(iq, device)
         return tuple(torch.as_tensor(p).to(device).contiguous() for p in iq)
+    # a complex array or tensor crosses as two planes, as a CX does
+    _count_crossings(iq if isinstance(iq, cx.CX) else (iq, iq), device)
     return cx.as_cx(iq, device=device)
 
 
@@ -368,57 +388,87 @@ def channelize_dispatch(cfg: WidebandConfig, params: WidebandParams,
     return cx.CX(c.real.contiguous(), c.imag.contiguous()), chans
 
 
-def _process_chan_major(cfg: WidebandConfig, params: WidebandParams,
-                        state: WidebandState, iq
+class _Plan(NamedTuple):
+    """What a chunk's tier needs of the configuration, worked out on the
+    host before the chunk's first launch."""
+    tier: object                   # the tier's function
+    ccfg: chain.ChainConfig
+    factors: tuple | None          # the channelizer's (n1, n2)
+    order: torch.Tensor | None     # planar row → bin, on the device
+
+
+def _plan(cfg: WidebandConfig, device: torch.device) -> _Plan:
+    if not cfg.time_major:
+        return _Plan(_process_chan_major, cfg.chain_cfg, None, None)
+    if _planar_active(cfg):
+        return _Plan(_process_planar, cfg.chain_cfg, _factors_for(cfg),
+                     _row_order(cfg, device))
+    if _tmajor_fused_ok(cfg):
+        return _Plan(_process_tmajor_fused, cfg.chain_cfg,
+                     channelizer._pick_factors(cfg.n_chan), None)
+    return _Plan(_process_fallback, cfg.chain_cfg, None, None)
+
+
+def _process_chan_major(cfg: WidebandConfig, plan: _Plan,
+                        params: WidebandParams, state: WidebandState, iq
                         ) -> tuple[WidebandState, chain.ChainOutput]:
-    pfb_carry, chans = channelize_dispatch(cfg, params, state.pfb_carry,
-                                           _as_f32_cx(iq))
-    cstate, out = chain.process_traced(cfg.chain_cfg, params.chain,
-                                       state.chain, chans)
+    with profiling.span("wideband.channelize"):
+        pfb_carry, chans = channelize_dispatch(cfg, params, state.pfb_carry,
+                                               _as_f32_cx(iq))
+    with profiling.span("chain.process"):
+        cstate, out = chain.process_traced(plan.ccfg, params.chain,
+                                           state.chain, chans)
     return WidebandState(pfb_carry=pfb_carry, chain=cstate), out
 
 
-def _process_planar(cfg: WidebandConfig, params: WidebandParams,
-                    state: WidebandState, iq
+def _process_planar(cfg: WidebandConfig, plan: _Plan,
+                    params: WidebandParams, state: WidebandState, iq
                     ) -> tuple[WidebandState, chain.ChainOutput]:
-    ccfg = cfg.chain_cfg
-    n1, n2 = _factors_for(cfg)
-    raw_dtype = (torch.bfloat16 if cfg.chan_precision == "default"
-                 and cfg.passband_precision == "default" else torch.float32)
-    pfb_carry, (raw_r, raw_i) = channelize_fused.channelize_fused_raw3(
-        pfb_plan(cfg), params.W_pfb, state.pfb_carry, iq, factors=(n1, n2),
-        bf16_mxu=cfg.chan_precision == "default", out_dtype=raw_dtype)
+    ccfg = plan.ccfg
+    with profiling.span("wideband.channelize"):
+        raw_dtype = (torch.bfloat16 if cfg.chan_precision == "default"
+                     and cfg.passband_precision == "default"
+                     else torch.float32)
+        pfb_carry, (raw_r, raw_i) = channelize_fused.channelize_fused_raw3(
+            pfb_plan(cfg), params.W_pfb, state.pfb_carry, iq,
+            factors=plan.factors, bf16_mxu=cfg.chan_precision == "default",
+            out_dtype=raw_dtype)
     # next chunk's FIR history: the raw tail [n1, ov, n2] → [n2, n1, ov]
     # → [M, ov]; row col·n1 + k1 is bin k2·n1 + k1 (col = k2, unsplit)
-    ov = ccfg.n_taps - 1
-    os_carry = cx.CX(
-        raw_r[:, -ov:, :].permute(2, 0, 1).reshape(cfg.n_chan, ov).float(),
-        raw_i[:, -ov:, :].permute(2, 0, 1).reshape(cfg.n_chan, ov).float())
+    with profiling.span("wideband.history"):
+        ov = ccfg.n_taps - 1
+        os_carry = cx.CX(
+            raw_r[:, -ov:, :].permute(2, 0, 1).reshape(cfg.n_chan, ov)
+            .float(),
+            raw_i[:, -ov:, :].permute(2, 0, 1).reshape(cfg.n_chan, ov)
+            .float())
     cstate, audioT, rssi = chain.process_tail_tmajor(
         ccfg, params.chain, state.chain, state.chain.phase, os_carry,
-        fir_x3=(raw_r, raw_i), chan_order=_row_order(cfg, raw_r.device),
+        fir_x3=(raw_r, raw_i), chan_order=plan.order,
         audio_dtype=_AUDIO_DTYPES[cfg.audio_dtype])
     return (WidebandState(pfb_carry=pfb_carry, chain=cstate),
             chain.ChainOutput(audio=audioT, rssi=rssi, baseband=None))
 
 
-def _process_tmajor_fused(cfg: WidebandConfig, params: WidebandParams,
-                          state: WidebandState, iq
+def _process_tmajor_fused(cfg: WidebandConfig, plan: _Plan,
+                          params: WidebandParams, state: WidebandState, iq
                           ) -> tuple[WidebandState, chain.ChainOutput]:
     """The time-major tier off the planar coupling: the channelizer kernel
     writes bin-ordered planes [nf, M] (an int16 pair goes to it as it is
     and is dequantized in the kernel); with an in-tail FIR block the FIR
     tail reads them (no baseband output), else the time-major Toeplitz
     passband runs alone and the non-FIR tail takes its yT."""
-    ccfg = cfg.chain_cfg
-    pfb_carry, chansT = channelize_fused.channelize_fused_c(
-        pfb_plan(cfg), params.W_pfb, state.pfb_carry, iq,
-        factors=channelizer._pick_factors(cfg.n_chan),
-        bf16_mxu=cfg.chan_precision == "default", out_layout="time")
+    ccfg = plan.ccfg
+    with profiling.span("wideband.channelize"):
+        pfb_carry, chansT = channelize_fused.channelize_fused_c(
+            pfb_plan(cfg), params.W_pfb, state.pfb_carry, iq,
+            factors=plan.factors,
+            bf16_mxu=cfg.chan_precision == "default", out_layout="time")
     chansT = cx.CX(*chansT)
-    ov = ccfg.n_taps - 1
-    os_carry = cx.CX(chansT.re[-ov:].T.contiguous(),
-                     chansT.im[-ov:].T.contiguous())
+    with profiling.span("wideband.history"):
+        ov = ccfg.n_taps - 1
+        os_carry = cx.CX(chansT.re[-ov:].T.contiguous(),
+                         chansT.im[-ov:].T.contiguous())
     kw = dict(audio_dtype=_AUDIO_DTYPES[cfg.audio_dtype])
     if params.chain.W_tailpass is not None:
         yT = None
@@ -434,15 +484,12 @@ def _process_tmajor_fused(cfg: WidebandConfig, params: WidebandParams,
             chain.ChainOutput(audio=audioT, rssi=rssi, baseband=yT))
 
 
-def _process_tmajor(cfg: WidebandConfig, params: WidebandParams,
-                    state: WidebandState, iq
-                    ) -> tuple[WidebandState, chain.ChainOutput]:
-    if _planar_active(cfg):
-        return _process_planar(cfg, params, state, iq)
-    if _tmajor_fused_ok(cfg):
-        return _process_tmajor_fused(cfg, params, state, iq)
-    # fallback: the chan-major pipeline plus one transpose
-    st, out = _process_chan_major(cfg, params, state, iq)
+def _process_fallback(cfg: WidebandConfig, plan: _Plan,
+                      params: WidebandParams, state: WidebandState, iq
+                      ) -> tuple[WidebandState, chain.ChainOutput]:
+    """The time-major layout off the fused tiers: the chan-major
+    pipeline plus one transpose."""
+    st, out = _process_chan_major(cfg, plan, params, state, iq)
     audioT = out.audio.T.to(_AUDIO_DTYPES[cfg.audio_dtype]).contiguous()
     bb = cx.CX(out.baseband.re.T, out.baseband.im.T)
     return st, chain.ChainOutput(audio=audioT, rssi=out.rssi, baseband=bb)
@@ -456,10 +503,13 @@ def process(cfg: WidebandConfig, params: WidebandParams,
     (`time_major`: [chunk_per_chan·L, n_chan], rows in
     `audio_channel_order`) and RSSI [n_chan, rows]. Inputs move to the
     params' device."""
-    iq = _coerce(iq, params.W_pfb.device)
-    if cfg.time_major:
-        return _process_tmajor(cfg, params, state, iq)
-    return _process_chan_major(cfg, params, state, iq)
+    device = params.W_pfb.device
+    with profiling.span("wideband.process"):
+        with profiling.span("wideband.ingest"):
+            iq = _coerce(iq, device)
+        with profiling.span("wideband.plan"):
+            plan = _plan(cfg, device)
+        return plan.tier(cfg, plan, params, state, iq)
 
 
 def process_n(cfg: WidebandConfig, params: WidebandParams,

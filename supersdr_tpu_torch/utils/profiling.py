@@ -8,21 +8,190 @@
   * `BlockTimer` — streaming per-stage wall-time stats (EWMA + percentiles)
     for the host loop: source wait, device step, sink push
   * `log` — structured logging setup (one line per event, key=value)
+  * `span` / `count_sync` — the program's own spans and host↔device
+    crossings, recorded only while a `torch.profiler` runs (below)
 
 `BlockTimer`, `ThroughputMeter` and `get_logger` are the reference's.
+
+**Spans.** `with span("wideband.process"): ...` marks a layer boundary of
+the program. While a `torch.profiler` runs (the flag torch sets for it,
+`torch.autograd.profiler._is_profiler_enabled`), each span is recorded in
+memory as a `Span`: its name, start and end on the Unix clock in ns
+(`time.time_ns()`, the clock of a profiler trace's `ts` plus its
+`baseTimeNanoseconds`; on a card the trace's device times wander against
+it by up to milliseconds over seconds, so hold spans against them chunk
+by chunk), the index of the span that was open around it
+(-1 for a root) and a chunk identifier, which a root span draws anew
+unless given one and its children inherit. `count_sync()` counts one
+blocking host↔device crossing under the innermost open span's chunk.
+`spans()`, `host_syncs()` read what was recorded, `clear_spans()` empties
+both. With no profiler running a span costs one flag read: nothing is
+recorded and nothing is counted. `trace` writes the spans of its block
+into the Chrome trace it writes, as complete events of category
+`program_span`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 import os
 import tempfile
+import threading
 import time
 from collections import defaultdict, deque
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
+import torch.autograd.profiler as _autograd_profiler
+
+SPAN_CATEGORY = "program_span"
+
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int          # Unix clock, ns (`time.time_ns()`)
+    end_ns: int | None     # None while the span is open
+    parent: int            # index in `spans()` of the enclosing span, or -1
+    chunk: int             # the chunk the span's work belongs to
+
+
+class _Recorder:
+    """The spans and crossings of the process. A span is a position in
+    five parallel lists (name, start, end, parent, chunk: strings and
+    integers, which the garbage collector does not track, so a long
+    traced run does not slow its collections), and the open spans are a
+    stack of positions. The chunk path records from one thread: spans
+    opened by two threads at once would nest into each other. Used as the
+    context manager of an open span: leaving it closes the innermost."""
+
+    def __init__(self):
+        self.chunks = 0
+        self.clear()
+
+    def clear(self) -> None:
+        self.names: list = []
+        self.starts: list = []
+        self.ends: list = []
+        self.parents: list = []
+        self.chunk_ids: list = []
+        self.stack: list = []
+        self.syncs: dict = defaultdict(int)
+
+    def open(self, name: str, chunk: int | None) -> "_Recorder":
+        st = self.stack
+        if st:
+            parent = st[-1]
+            chunk = self.chunk_ids[parent]
+        else:
+            parent = -1
+            if chunk is None:
+                self.chunks += 1
+                chunk = self.chunks
+        st.append(len(self.names))
+        self.names.append(name)
+        self.ends.append(None)
+        self.parents.append(parent)
+        self.chunk_ids.append(chunk)
+        self.starts.append(time.time_ns())
+        return self
+
+    def chunk(self) -> int | None:
+        return self.chunk_ids[self.stack[-1]] if self.stack else None
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        t = time.time_ns()
+        if self.stack:
+            self.ends[self.stack.pop()] = t
+        return False
+
+    def spans(self) -> list:
+        return [Span(*r) for r in zip(self.names, self.starts, self.ends,
+                                      self.parents, self.chunk_ids)]
+
+
+class _NoSpan:
+    """The span handed out while no profiler runs: does nothing."""
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_RECORDER = _Recorder()
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str, chunk: int | None = None):
+    """A context manager around one layer's work (see the module's
+    docstring). A root span takes `chunk` as its chunk identifier where
+    given, else a new one; a nested span takes its parent's."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _RECORDER.open(name, chunk)
+
+
+def recording() -> bool:
+    """True while spans and crossings are recorded (a profiler runs)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def current_chunk() -> int | None:
+    """The chunk identifier of the innermost open span; None where none
+    is open or no profiler runs."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    return _RECORDER.chunk()
+
+
+def count_sync() -> None:
+    """Count one blocking host↔device crossing (a copy the host waits
+    for) under the innermost open span's chunk."""
+    if _autograd_profiler._is_profiler_enabled:
+        _RECORDER.syncs[_RECORDER.chunk()] += 1
+
+
+def spans() -> list[Span]:
+    """Every span recorded since the last `clear_spans()`, in the order
+    they opened (the index is what `Span.parent` refers to)."""
+    return _RECORDER.spans()
+
+
+def host_syncs() -> dict:
+    """Blocking host↔device crossings counted since the last
+    `clear_spans()`, by chunk identifier."""
+    return dict(_RECORDER.syncs)
+
+
+def clear_spans() -> None:
+    """Forget every recorded span and crossing."""
+    _RECORDER.clear()
+
+
+def _write_spans(path: str, first: int) -> None:
+    """Add the spans recorded from index `first` on to the Chrome trace at
+    `path`, as complete events of category SPAN_CATEGORY on the clock of
+    the file's `baseTimeNanoseconds`."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid, tid = os.getpid(), threading.get_native_id()
+    doc["traceEvents"].extend(
+        {"ph": "X", "cat": SPAN_CATEGORY, "name": s.name, "pid": pid,
+         "tid": tid, "ts": (s.start_ns - base) / 1e3,
+         "dur": (s.end_ns - s.start_ns) / 1e3,
+         "args": {"chunk": s.chunk, "parent": s.parent - first
+                  if s.parent >= first else -1}}
+        for s in spans()[first:] if s.end_ns is not None)
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 def get_logger(name: str = "supersdr_tpu", level: int = logging.INFO
@@ -46,7 +215,9 @@ def trace(logdir: str | None = None):
     `<host>_<pid>.<ns>.pt.trace.json` in `logdir` (torch's TensorBoard
     naming): CPU activity always, CUDA activity (kernels, copies) when a
     card is present. Kernels appear under their own names, e.g.
-    `channelize_mma_kernel<…>` and `chain_tail_fir_kernel<…>`."""
+    `channelize_mma_kernel<…>` and `chain_tail_fir_kernel<…>`; the
+    program's spans of the block (`span`) as events of category
+    `program_span`, on the same clock."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -60,13 +231,17 @@ def trace(logdir: str | None = None):
     prof = profile(activities=activities,
                    on_trace_ready=torch.profiler.tensorboard_trace_handler(
                        logdir))
+    before = set(trace_files(logdir))
     prof.start()
+    first = len(_RECORDER.names)
     try:
         yield logdir
     finally:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         prof.stop()
+        for path in set(trace_files(logdir)) - before:
+            _write_spans(path, first)
 
 
 def trace_files(logdir: str) -> list[str]:
