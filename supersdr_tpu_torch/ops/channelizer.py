@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from supersdr_tpu_torch.ops import cx, firdesign
+from supersdr_tpu_torch.utils import held
 
 MAX_DIRECT = 256   # largest DFT factor (the reference's cx.MAX_DIRECT)
 
@@ -79,6 +80,20 @@ def init_carry(plan: PFBPlan, batch_shape: tuple[int, ...] = (),
     return cx.zeros(batch_shape + (plan.history,), device=device)
 
 
+def _fold_taps(W: torch.Tensor, K: int, M: int) -> torch.Tensor:
+    return W.reshape(-1).flip(0).reshape(K, M).contiguous()
+
+
+_FOLD_TAPS = held.FromTensors(_fold_taps)
+
+
+def fold_taps(W: torch.Tensor, K: int, M: int) -> torch.Tensor:
+    """The fold taps g2 [K, M] of the polyphase weights W (read backwards,
+    g2[k, m] = W.flat[K·M − 1 − k·M − m]), made once for W and held
+    (`utils/held.FromTensors`)."""
+    return _FOLD_TAPS((W,), K, M)
+
+
 def _fold_slices(g2: torch.Tensor, rows: torch.Tensor, n_frames: int
                  ) -> torch.Tensor:
     """fold[t, r] = Σ_k g2[k, r]·rows[t + k, r] (critical sampling)."""
@@ -106,11 +121,11 @@ def channelize_c(plan: PFBPlan, W: torch.Tensor, carry: torch.Tensor,
                          "of n_chan")
     n_frames = n // hop
     seg = torch.cat([carry, x], dim=-1)
-    g = W.reshape(-1).flip(0)
     if hop == M:
         rows = seg.reshape(*seg.shape[:-1], n_frames + K - 1, M)
-        fold = _fold_slices(g.reshape(K, M), rows, n_frames)
+        fold = _fold_slices(fold_taps(W, K, M), rows, n_frames)
     else:
+        g = W.reshape(-1).flip(0)
         idx = (torch.arange(n_frames, device=x.device)[:, None] * hop
                + torch.arange(plan.window_len, device=x.device)[None, :])
         frames = seg[..., idx]                          # [.., nf, K·M]
@@ -179,7 +194,7 @@ def _fold_mxu2(plan: PFBPlan, W: torch.Tensor, carry: torch.Tensor,
     M, K = plan.n_chan, plan.taps_per
     n_frames = x.shape[-1] // M
     seg = torch.cat([carry, x], dim=-1)
-    g2 = W.reshape(-1).flip(0).reshape(K, M).contiguous()
+    g2 = fold_taps(W, K, M)
     rows = seg.reshape(*seg.shape[:-1], n_frames + K - 1, M)
     rows_r, rows_i = rows.real, rows.imag
     if fold_dtype != torch.float32:
@@ -217,7 +232,7 @@ def channelize_mxu2_n(plan: PFBPlan, W: torch.Tensor, carry: torch.Tensor,
     if fold_impl == "pallas":
         if M % 128 == 0:
             from supersdr_tpu_torch.ops.cuda import pfb_fold
-            G = W.reshape(-1).flip(0).reshape(plan.taps_per, M).contiguous()
+            G = fold_taps(W, plan.taps_per, M)
             c, chans = pfb_fold.channelize_pallas_c(
                 plan, G, cx.CX(carry.real.contiguous(),
                                carry.imag.contiguous()),

@@ -32,6 +32,11 @@ factors instead (`_stagea_tables`): the n1-point DFT and the twiddle row,
 each rounded once to float32 from `channelizer._dif_factors`' float64, and
 multiplies by the twiddle after the sum over j1 (the same function; its
 float32 rounding falls in another place).
+
+The tables are made once and held: those of the shape by `lru_cache`, the
+fold taps (`channelizer.fold_taps`) and the kernel's transposed taps by
+`utils/held.FromTensors`, under the tensor they come from (a new or
+rewritten weight tensor is read anew).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 from supersdr_tpu_torch import _build
 from supersdr_tpu_torch.ops import channelizer, cx
 from supersdr_tpu_torch.ops.cuda import check_fp32_matmul
+from supersdr_tpu_torch.utils import held
 
 I16_SCALE = 1.0 / 32768.0
 MAX_TAPS_PER = 8      # the kernel's kKMax: fold rows held in registers
@@ -75,6 +81,7 @@ def tile_frames(n1: int, n2: int, *, split: bool, time: bool) -> int:
     return 0
 
 
+@lru_cache(maxsize=64)
 def check_shape(n1: int, n2: int, K: int, *, bf16_b: bool,
                 out_layout: str) -> int:
     """The kernel's tile for these arguments, or ValueError for a shape it
@@ -196,6 +203,15 @@ def channelize_fused_plain(g2: torch.Tensor, At_r: torch.Tensor,
     return out_r.to(out_dtype), out_i.to(out_dtype)
 
 
+def _transposed_taps(g2: torch.Tensor, K: int, M: int) -> torch.Tensor:
+    gt = g2.new_zeros(M, MAX_TAPS_PER)
+    gt[:, :K] = g2.T
+    return gt
+
+
+_TRANSPOSED_TAPS = held.FromTensors(_transposed_taps)
+
+
 @lru_cache(maxsize=64)
 def _tile_agrees(n1: int, n2: int, bf16_b: bool, time: bool) -> None:
     """Raise unless the built kernel's plan picks `tile_frames`' tile."""
@@ -221,8 +237,7 @@ def _launch(g2, At_r, At_i, c2, head_r, head_i, x_r, x_i, *, n1, n2,
     if x_r.data_ptr() % 16 or x_i.data_ptr() % 16:
         # the kernel copies rows in 16-byte pieces
         x_r, x_i = x_r.clone(), x_i.clone()
-    gt = g2.new_zeros(M, MAX_TAPS_PER)
-    gt[:, :K] = g2.T
+    gt = _TRANSPOSED_TAPS((g2,), K, M)
     dev = str(x_r.device)
     dft, tw = _stagea_tables(M, n1, n2, dev)
     # stage B on the tensor cores reads its own table layout, not c2
@@ -394,7 +409,7 @@ def prepare(plan: channelizer.PFBPlan, W: torch.Tensor, carry: cx.CX,
     n1, n2 = factors
     *lead, n = x_r.shape
     nf = n // M
-    g2 = W.reshape(-1).flip(0).reshape(K, M).contiguous()
+    g2 = channelizer.fold_taps(W, K, M)
     At_r, At_i, c2 = _tables(M, n1, n2, bool(bf16_mxu), str(W.device))
     args = (g2, At_r, At_i, c2, carry.re.reshape(*lead, K - 1, M),
             carry.im.reshape(*lead, K - 1, M), x_r.reshape(*lead, nf, M),

@@ -14,6 +14,7 @@ them in float32 too). The FIR-fused chain tail reads W back for its taps.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -219,6 +220,7 @@ def taps_are_real(taps: np.ndarray) -> bool:
                 <= 1e-10 * max(float(np.abs(taps).max()), 1e-30))
 
 
+@lru_cache(maxsize=64)
 def tail_fir_block(chunk: int, n_taps: int, tile_t: int
                    ) -> tuple[int, int] | None:
     """(B, n_prev) for the in-tail passband: the least window work

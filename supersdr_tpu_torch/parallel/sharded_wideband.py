@@ -301,6 +301,8 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
     my_rows = state_rows[comm.rank * n_rows:(comm.rank + 1) * n_rows]
     held_order = state_rows if comm.world == 1 else \
         torch.arange(n_rows, device=mesh.device)
+    # and its inverse, made here once rather than sorted every chunk
+    held_inv = torch.argsort(held_order)
 
     def pad0(v):
         if C_pad == M:
@@ -332,7 +334,7 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
                                for r in (raw_r, raw_i)))
         cstate, audioT, rssi = chain_mod.process_tail_tmajor(
             ccfg, params.chain, state.chain, state.chain.phase, os_carry,
-            fir_x3=(raw_r, raw_i), chan_order=held_order,
+            fir_x3=(raw_r, raw_i), chan_order=held_order, chan_inv=held_inv,
             audio_dtype=audio_dtype)
         return tails, cstate, audioT, rssi
 
@@ -352,7 +354,8 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
         kw = dict(audio_dtype=audio_dtype)
         if params.chain.W_tailpass is not None and (M // d) % 8 == 0:
             # the FIR tail reads the shards' planes as they lie
-            kw.update(fir_x3=(tr, ti), chan_order=held_order)
+            kw.update(fir_x3=(tr, ti), chan_order=held_order,
+                      chan_inv=held_inv)
         else:
             xT = cx.CX(*(p.movedim(0, 1).reshape(-1, n_rows)
                          for p in (tr, ti)))

@@ -19,17 +19,23 @@ wideband time-major tiers call `process_tail_tmajor` with the channelizer's
 raw planes or its time-major planes (`chain_tail_fir`, passband fused in),
 or with a filtered passband (`chain_tail_am`).
 
+What a configuration and its parameters fix is worked out once and held
+(`utils/held.py`): the derived plans of a `ChainConfig`, the tail's tile,
+FIR block and scalars (`_tail_plan`), its parameter vector and the squelch
+at the audio rate (rebuilt when a parameter tensor changes). A chunk only
+launches work on its own data and state.
+
 Under a running `torch.profiler` (`utils/profiling.span`),
 `process_tail_tmajor` records its chunk as the span `chain.tail` with three
-children: `chain.tail.pack` (the kernel's inputs: the row order's inverse,
-the state rows, the history, the parameter vector), `chain.tail.launch`
-(the kernel's call) and `chain.tail.unpack` (the RSSI in dB, the squelch,
-the state from the rows).
+children: `chain.tail.pack` (the kernel's inputs: the state rows, the
+history, the parameter vector), `chain.tail.launch` (the kernel's call) and
+`chain.tail.unpack` (the RSSI in dB, the squelch, the state from the rows).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property, lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -44,7 +50,7 @@ from supersdr_tpu_torch.ops import (fir_matmul, firdesign, mixer,
 from supersdr_tpu_torch.ops import smeter
 from supersdr_tpu_torch.ops import squelch as squelch_ops
 from supersdr_tpu_torch.ops.cuda import chain_tail
-from supersdr_tpu_torch.utils import profiling
+from supersdr_tpu_torch.utils import held, profiling
 
 
 @dataclass(frozen=True)
@@ -55,7 +61,8 @@ class ChainConfig:
     every precision, the fused tails round operands to bf16 where the
     reference's kernels do, and `passband_impl="fftmxu"` (the reference's
     one-row overlap-save through matrix-product DFTs) is the overlap-save
-    passband with its one row a chunk, in float32 `torch.fft`."""
+    passband with its one row a chunk, in float32 `torch.fft`. The plans
+    below are worked out on first use and held by the (frozen) instance."""
     mode: str = "AM"
     iq_rate: int = 12000
     audio_rate: int = 48000
@@ -94,11 +101,11 @@ class ChainConfig:
                     f"rational resampling {self.iq_rate}->{self.audio_rate}"
                     f" needs chunk % {M} == 0 (got chunk={self.chunk})")
 
-    @property
+    @cached_property
     def os_plan(self) -> overlap_save.OSPlan:
         return overlap_save.plan_for(self.os_block, self.n_taps)
 
-    @property
+    @cached_property
     def fir_plan(self) -> fir_matmul.FIRMatmulPlan:
         return fir_matmul.plan_for(self.chunk, self.n_taps)
 
@@ -128,16 +135,16 @@ class ChainConfig:
             return 1
         return agc_ops.hang_samples(self.iq_rate, self.hang_ms)
 
-    @property
+    @cached_property
     def interp_plan(self) -> resample.InterpPlan:
         plan, _ = resample.design_interp(self.iq_rate, self.audio_rate)
         return plan
 
-    @property
+    @cached_property
     def interp_matmul_plan(self) -> resample.InterpMatmulPlan:
         return resample.plan_interp_matmul(self.interp_plan, self.chunk)
 
-    @property
+    @cached_property
     def rational_plan(self) -> resample.RationalPlan:
         plan, _ = resample.plan_rational(self.iq_rate, self.audio_rate)
         return plan
@@ -272,6 +279,7 @@ def init_state(cfg: ChainConfig, batch_shape: tuple[int, ...] = (),
         squelch=squelch_ops.init_squelch(batch_shape, device=device))
 
 
+@lru_cache(maxsize=64)
 def _tail_tile(chunk: int, n_taps: int | None = None) -> int:
     """The reference's tail tile: a chunk divisor ≤ 1008, multiple of 8,
     with the smallest in-tail FIR block (ties to the larger tile). The
@@ -307,22 +315,58 @@ def _tail_demod(cfg: ChainConfig) -> str:
             "NBFM": "nbfm"}[cfg.mode.upper()]
 
 
+def _tail_hang_window(cfg: ChainConfig) -> int:
+    return cfg.hang_window if cfg.hang_enabled else 0
+
+
+class _TailPlan(NamedTuple):
+    """What the tail kernels take of a `ChainConfig`, besides tensors."""
+    per: int                       # resampler taps a branch
+    tile: int                      # `_tail_tile`
+    fir_block: tuple | None        # in-tail FIR (B, n_prev), or None
+    rb: int                        # resampler rows a block: 32, 16 or 0
+    hang: int                      # AGC hang window, samples (0: off)
+    demod: str
+    slot0: float                   # the parameter vector's slot 0
+
+
+@lru_cache(maxsize=64)
+def _tail_plan(cfg: ChainConfig) -> _TailPlan:
+    tile = _tail_tile(cfg.chunk, cfg.n_taps)
+    return _TailPlan(
+        per=cfg.interp_plan.per, tile=tile,
+        fir_block=fir_matmul.tail_fir_block(cfg.chunk, cfg.n_taps, tile),
+        rb=32 if tile % 32 == 0 else (16 if tile % 16 == 0 else 0),
+        hang=_tail_hang_window(cfg), demod=_tail_demod(cfg),
+        slot0=(cfg.iq_rate / (2.0 * np.pi * cfg.max_dev_hz)
+               if cfg.mode.upper() == "NBFM" else 0.999))
+
+
+def _build_params_vec(decay, thresh, slope, target, man_gain, on, attack,
+                      hang, slot0: float) -> torch.Tensor:
+    # torch.full fills on the device: a host copy would wait for the card
+    s0 = torch.full((), slot0, dtype=torch.float32, device=on.device)
+    return torch.stack([s0, decay, thresh, slope, target, man_gain, on,
+                        attack, hang]).to(torch.float32)
+
+
+_PARAMS_VEC = held.FromTensors(_build_params_vec)
+
+
 def _tail_params_vec(params: ChainParams, cfg: ChainConfig) -> torch.Tensor:
     """[9] float32: slot 0 is the AM DC pole or, for NBFM, the
     discriminator scale fs/(2π·max_dev); then the AGC scalars and the
-    runtime hang flag."""
+    runtime hang flag. Built once for a set of AGC tensors and held."""
     ag = params.agc
-    # torch.full fills on the device: a host copy would wait for the card
-    slot0 = torch.full((), cfg.iq_rate / (2.0 * np.pi * cfg.max_dev_hz)
-                       if cfg.mode.upper() == "NBFM" else 0.999,
-                       dtype=torch.float32, device=ag.on.device)
-    return torch.stack([slot0, ag.decay_per_sample_db, ag.thresh_db,
-                        ag.slope_db, ag.target_db, ag.man_gain_db, ag.on,
-                        ag.attack_coeff, ag.hang]).to(torch.float32)
+    return _PARAMS_VEC((ag.decay_per_sample_db, ag.thresh_db, ag.slope_db,
+                        ag.target_db, ag.man_gain_db, ag.on,
+                        ag.attack_coeff, ag.hang), _tail_plan(cfg).slot0)
 
 
-def _tail_hang_window(cfg: ChainConfig) -> int:
-    return cfg.hang_window if cfg.hang_enabled else 0
+@lru_cache(maxsize=64)
+def _zeros(shape: tuple, dtype: torch.dtype, device: torch.device
+           ) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 def _state_rows(cfg: ChainConfig, state: ChainState, order=None
@@ -335,7 +379,7 @@ def _state_rows(cfg: ChainConfig, state: ChainState, order=None
     rows = torch.cat([torch.stack([r0, r1, state.agc.peak_db,
                                    state.agc.gain_db]),
                       state.interp_carry.T,
-                      torch.zeros_like(r0)[None]])
+                      _zeros((1, *r0.shape), r0.dtype, r0.device)])
     return (rows if order is None else rows[:, order]).contiguous()
 
 
@@ -358,12 +402,21 @@ def _unpack_rows(cfg: ChainConfig, state: ChainState, st2: torch.Tensor,
     return dstate, astate, st2[4:4 + PER - 1].T.contiguous()
 
 
+def _build_squelch_tail(enabled, thresh_db, hyst_db, ramp, upsample: int
+                        ) -> squelch_ops.SquelchParams:
+    return squelch_ops.SquelchParams(enabled, thresh_db, hyst_db,
+                                     ramp / float(upsample))
+
+
+_SQUELCH_TAIL = held.FromTensors(_build_squelch_tail)
+
+
 def _squelch_tail(params: ChainParams, cfg: ChainConfig
                   ) -> squelch_ops.SquelchParams:
     """The squelch at the audio rate: the ramp rescaled so its duration
-    in seconds matches the gate at the IQ rate (as the reference)."""
-    return params.squelch._replace(ramp=params.squelch.ramp
-                                   / float(cfg.upsample))
+    in seconds matches the gate at the IQ rate (as the reference). Held
+    for a set of squelch tensors."""
+    return _SQUELCH_TAIL(tuple(params.squelch), cfg.upsample)
 
 
 def _process_tail_pallas(cfg: ChainConfig, params: ChainParams,
@@ -373,10 +426,11 @@ def _process_tail_pallas(cfg: ChainConfig, params: ChainParams,
     """Fused back half on y [C, chunk] (complex64): one `chain_tail_am_c`
     launch reads y in place (no transpose) and writes audio [C,
     chunk·L]; then the squelch gate at the audio rate."""
+    tp = _tail_plan(cfg)
     audio, st2 = chain_tail.chain_tail_am_c(
         y, _state_rows(cfg, state), _tail_params_vec(params, cfg),
-        params.P_interp, tile_t=_tail_tile(cfg.chunk, cfg.n_taps),
-        demod=_tail_demod(cfg), hang_window=_tail_hang_window(cfg))
+        params.P_interp, tile_t=tp.tile, demod=tp.demod,
+        hang_window=tp.hang)
     sq_state = state.squelch
     if cfg.squelch_enabled:
         sq_state, audio = squelch_ops.apply_squelch(
@@ -396,6 +450,7 @@ def process_tail_tmajor(cfg: ChainConfig, params: ChainParams,
                         fir_x: cx.CX | None = None,
                         fir_x3: tuple | None = None,
                         chan_order: torch.Tensor | None = None,
+                        chan_inv: torch.Tensor | None = None,
                         audio_dtype: torch.dtype = torch.float32
                         ) -> tuple[ChainState, torch.Tensor, torch.Tensor]:
     """Time-major fused back half, one kernel launch, on one of three
@@ -403,9 +458,10 @@ def process_tail_tmajor(cfg: ChainConfig, params: ChainParams,
 
     fir_x3  (raw_r, raw_i) [n1, chunk, n2], the channelizer's raw planes:
             the FIR tail filters them in place; audio and RSSI rows come
-            out in planar channel order, and `chan_order` (row → bin, an
-            index tensor on the planes' device) permutes the bin-ordered
-            ChainState in and out;
+            out in planar channel order: `chan_order` (row → bin, an index
+            tensor on the planes' device) permutes the bin-ordered
+            ChainState in, and `chan_inv` (its inverse, which the caller
+            holds with it) back out;
     fir_x   CX [chunk, C], the channelizer's time-major bin-ordered
             planes: the same FIR tail, which reads them as one plane of
             C columns;
@@ -423,16 +479,13 @@ def process_tail_tmajor(cfg: ChainConfig, params: ChainParams,
         order = inv = None
         with profiling.span("chain.tail.pack"):
             if fir_x3 is not None:
-                if chan_order is None:
-                    raise ValueError("fir_x3 needs chan_order")
-                order = chan_order
-                inv = torch.argsort(order)
-            PER = cfg.interp_plan.per
-            tile = _tail_tile(cfg.chunk, cfg.n_taps)
-            hang = _tail_hang_window(cfg)
+                if chan_order is None or chan_inv is None:
+                    raise ValueError("fir_x3 needs chan_order and chan_inv")
+                order, inv = chan_order, chan_inv
+            tp = _tail_plan(cfg)
+            pvec = _tail_params_vec(params, cfg)
             if yT is not None:
                 rows = _state_rows(cfg, state)
-                pvec = _tail_params_vec(params, cfg)
             else:
                 if params.W_tailpass is None:
                     raise ValueError("params.W_tailpass missing "
@@ -443,31 +496,28 @@ def process_tail_tmajor(cfg: ChainConfig, params: ChainParams,
                 hist_r, hist_i = state.os_carry.re, state.os_carry.im
                 if order is not None:
                     hist_r, hist_i = hist_r[order], hist_i[order]
-                B, n_prev = fir_matmul.tail_fir_block(cfg.chunk, cfg.n_taps,
-                                                      tile)
-                rb = 32 if tile % 32 == 0 else (16 if tile % 16 == 0 else 0)
+                B, n_prev = tp.fir_block
                 hist_r, hist_i = hist_r.T.contiguous(), hist_i.T.contiguous()
                 rows = _state_rows(cfg, state, order)
-                pvec = _tail_params_vec(params, cfg)
         with profiling.span("chain.tail.launch"):
             if yT is not None:
                 audioT, st2 = chain_tail.chain_tail_am(
-                    yT.re, yT.im, rows, pvec, params.P_interp, tile_t=tile,
-                    demod=_tail_demod(cfg), accum_pow=True, hang_window=hang,
-                    audio_layout="time")
+                    yT.re, yT.im, rows, pvec, params.P_interp,
+                    tile_t=tp.tile, demod=tp.demod, accum_pow=True,
+                    hang_window=tp.hang, audio_layout="time")
             else:
                 audioT, st2 = chain_tail.chain_tail_fir(
                     raw_r, raw_i, hist_r, hist_i, rows, pvec,
                     params.W_tailpass, params.P_interp, n_taps=cfg.n_taps, B=B,
-                    n_prev=n_prev, tile_t=tile, demod=_tail_demod(cfg),
+                    n_prev=n_prev, tile_t=tp.tile, demod=tp.demod,
                     fir_bf16=cfg.passband_precision == "default",
-                    rs_bf16=(cfg.resample_impl == "matmul" and rb != 0
+                    rs_bf16=(cfg.resample_impl == "matmul" and tp.rb != 0
                              and cfg.resample_precision == "default"),
-                    hang_window=hang)
+                    hang_window=tp.hang)
         with profiling.span("chain.tail.unpack"):
             if audio_dtype != torch.float32:
                 audioT = audioT.to(audio_dtype)
-            pw = st2[4 + PER - 1] / cfg.chunk
+            pw = st2[4 + tp.per - 1] / cfg.chunk
             rssi = torch.clamp_min(
                 10.0 * torch.log10(torch.clamp_min(pw, 1e-30))
                 + smeter.DEFAULT_CAL_DB, smeter.RSSI_FLOOR_DB)[:, None]

@@ -29,6 +29,12 @@ the reference's own predicates:
 tier) and `channel_freqs` is row-aligned. The state is the same on every
 tier, so a stream may change tier between chunks.
 
+A chunk's plan (`_plan`: the tier, the chain's configuration, the
+factoring, the planar row order and its inverse on the device) is worked
+out on a stream's first chunk and held for each (configuration, device)
+(`utils/held.plan`), as are the tables its kernels read of the parameters
+(`utils/held.FromTensors`). `utils/held.clear()` forgets them all.
+
 Under a running `torch.profiler`, `process` records its host work as spans
 (`utils/profiling.span`): `wideband.process` around the chunk, and inside
 it `wideband.ingest` (the input to the device), `wideband.plan` (the tier
@@ -40,7 +46,7 @@ where the tier cuts it) and the chain's `chain.tail` or `chain.process`.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import lru_cache
+from functools import cached_property
 from typing import NamedTuple
 
 import numpy as np
@@ -50,7 +56,7 @@ from supersdr_tpu_torch.device import default_device
 from supersdr_tpu_torch.ops import channelizer, cx, fir_matmul
 from supersdr_tpu_torch.ops.cuda import channelize_fused, pfb_fold
 from supersdr_tpu_torch.runtime import chain
-from supersdr_tpu_torch.utils import profiling
+from supersdr_tpu_torch.utils import held, profiling
 
 # The reference's two tuned tiers, by the same names and values; both run
 # the planar path. "fast": bf16 stage-B operands and bf16 raw planes, bf16
@@ -149,9 +155,10 @@ class WidebandConfig:
     def chunk_per_chan(self) -> int:
         return self.chunk_in // self.n_chan
 
-    @property
+    @cached_property
     def chain_cfg(self) -> chain.ChainConfig:
-        # PFB outputs are channel-centred: the NCO pass is compiled out
+        # PFB outputs are channel-centred: the NCO pass is compiled out;
+        # made once and held by the (frozen) instance
         return chain.ChainConfig(mode=self.mode, iq_rate=self.iq_rate,
                                  audio_rate=self.audio_rate,
                                  chunk=self.chunk_per_chan,
@@ -282,13 +289,6 @@ def channel_freqs(cfg: WidebandConfig, center_hz: float = 0.0,
     return freqs[np.asarray(order)]
 
 
-@lru_cache(maxsize=16)
-def _row_order(cfg: WidebandConfig, device: torch.device) -> torch.Tensor:
-    """`audio_channel_order` as an index tensor on `device`, made once: a
-    copy from host memory every chunk would wait for the card."""
-    return torch.as_tensor(audio_channel_order(cfg), device=device)
-
-
 def _is_i16_pair(iq) -> bool:
     """True for a plain (re_i16, im_i16) pair; a plain pair of any other
     dtype raises (wrap float planes as cx.CX)."""
@@ -355,7 +355,7 @@ def channelize_dispatch(cfg: WidebandConfig, params: WidebandParams,
     nf = iq.re.shape[-1] // M
     lead = iq.re.shape[:-1]
     if cfg.pallas_fold or (cfg.chan_impl == "mxu2pallas" and M % 128 == 0):
-        G = params.W_pfb.reshape(-1).flip(0).reshape(K, M).contiguous()
+        G = channelizer.fold_taps(params.W_pfb, K, M)
         return pfb_fold.channelize_pallas_c(plan, G, carry, iq)
     if cfg.chan_impl == "stub":
         chans = torch.complex(iq.re, iq.im).reshape(*lead, nf, M)
@@ -390,23 +390,42 @@ def channelize_dispatch(cfg: WidebandConfig, params: WidebandParams,
 
 class _Plan(NamedTuple):
     """What a chunk's tier needs of the configuration, worked out on the
-    host before the chunk's first launch."""
+    host on a stream's first chunk and held."""
     tier: object                   # the tier's function
     ccfg: chain.ChainConfig
+    pfb: channelizer.PFBPlan
     factors: tuple | None          # the channelizer's (n1, n2)
     order: torch.Tensor | None     # planar row → bin, on the device
+    inv: torch.Tensor | None       # its inverse: bin → planar row
+    bf16_mxu: bool                 # stage B on bf16 operands
+    raw_dtype: torch.dtype         # the planar planes' dtype
+    audio_dtype: torch.dtype
 
 
+@held.plan
 def _plan(cfg: WidebandConfig, device: torch.device) -> _Plan:
+    plan = _Plan(
+        tier=_process_fallback, ccfg=cfg.chain_cfg, pfb=pfb_plan(cfg),
+        factors=None, order=None, inv=None,
+        bf16_mxu=cfg.chan_precision == "default",
+        raw_dtype=(torch.bfloat16 if cfg.chan_precision == "default"
+                   and cfg.passband_precision == "default"
+                   else torch.float32),
+        audio_dtype=_AUDIO_DTYPES[cfg.audio_dtype])
     if not cfg.time_major:
-        return _Plan(_process_chan_major, cfg.chain_cfg, None, None)
+        return plan._replace(tier=_process_chan_major)
     if _planar_active(cfg):
-        return _Plan(_process_planar, cfg.chain_cfg, _factors_for(cfg),
-                     _row_order(cfg, device))
+        # both on the device once: a copy from host memory every chunk
+        # would wait for the card, an argsort every chunk is a device sort
+        order = audio_channel_order(cfg)
+        return plan._replace(
+            tier=_process_planar, factors=_factors_for(cfg),
+            order=torch.as_tensor(order, device=device),
+            inv=torch.as_tensor(np.argsort(order), device=device))
     if _tmajor_fused_ok(cfg):
-        return _Plan(_process_tmajor_fused, cfg.chain_cfg,
-                     channelizer._pick_factors(cfg.n_chan), None)
-    return _Plan(_process_fallback, cfg.chain_cfg, None, None)
+        return plan._replace(tier=_process_tmajor_fused,
+                             factors=channelizer._pick_factors(cfg.n_chan))
+    return plan
 
 
 def _process_chan_major(cfg: WidebandConfig, plan: _Plan,
@@ -426,13 +445,10 @@ def _process_planar(cfg: WidebandConfig, plan: _Plan,
                     ) -> tuple[WidebandState, chain.ChainOutput]:
     ccfg = plan.ccfg
     with profiling.span("wideband.channelize"):
-        raw_dtype = (torch.bfloat16 if cfg.chan_precision == "default"
-                     and cfg.passband_precision == "default"
-                     else torch.float32)
         pfb_carry, (raw_r, raw_i) = channelize_fused.channelize_fused_raw3(
-            pfb_plan(cfg), params.W_pfb, state.pfb_carry, iq,
-            factors=plan.factors, bf16_mxu=cfg.chan_precision == "default",
-            out_dtype=raw_dtype)
+            plan.pfb, params.W_pfb, state.pfb_carry, iq,
+            factors=plan.factors, bf16_mxu=plan.bf16_mxu,
+            out_dtype=plan.raw_dtype)
     # next chunk's FIR history: the raw tail [n1, ov, n2] → [n2, n1, ov]
     # → [M, ov]; row col·n1 + k1 is bin k2·n1 + k1 (col = k2, unsplit)
     with profiling.span("wideband.history"):
@@ -444,8 +460,8 @@ def _process_planar(cfg: WidebandConfig, plan: _Plan,
             .float())
     cstate, audioT, rssi = chain.process_tail_tmajor(
         ccfg, params.chain, state.chain, state.chain.phase, os_carry,
-        fir_x3=(raw_r, raw_i), chan_order=plan.order,
-        audio_dtype=_AUDIO_DTYPES[cfg.audio_dtype])
+        fir_x3=(raw_r, raw_i), chan_order=plan.order, chan_inv=plan.inv,
+        audio_dtype=plan.audio_dtype)
     return (WidebandState(pfb_carry=pfb_carry, chain=cstate),
             chain.ChainOutput(audio=audioT, rssi=rssi, baseband=None))
 
@@ -461,15 +477,14 @@ def _process_tmajor_fused(cfg: WidebandConfig, plan: _Plan,
     ccfg = plan.ccfg
     with profiling.span("wideband.channelize"):
         pfb_carry, chansT = channelize_fused.channelize_fused_c(
-            pfb_plan(cfg), params.W_pfb, state.pfb_carry, iq,
-            factors=plan.factors,
-            bf16_mxu=cfg.chan_precision == "default", out_layout="time")
+            plan.pfb, params.W_pfb, state.pfb_carry, iq,
+            factors=plan.factors, bf16_mxu=plan.bf16_mxu, out_layout="time")
     chansT = cx.CX(*chansT)
     with profiling.span("wideband.history"):
         ov = ccfg.n_taps - 1
         os_carry = cx.CX(chansT.re[-ov:].T.contiguous(),
                          chansT.im[-ov:].T.contiguous())
-    kw = dict(audio_dtype=_AUDIO_DTYPES[cfg.audio_dtype])
+    kw = dict(audio_dtype=plan.audio_dtype)
     if params.chain.W_tailpass is not None:
         yT = None
         kw["fir_x"] = chansT
@@ -490,7 +505,7 @@ def _process_fallback(cfg: WidebandConfig, plan: _Plan,
     """The time-major layout off the fused tiers: the chan-major
     pipeline plus one transpose."""
     st, out = _process_chan_major(cfg, plan, params, state, iq)
-    audioT = out.audio.T.to(_AUDIO_DTYPES[cfg.audio_dtype]).contiguous()
+    audioT = out.audio.T.to(plan.audio_dtype).contiguous()
     bb = cx.CX(out.baseband.re.T, out.baseband.im.T)
     return st, chain.ChainOutput(audio=audioT, rssi=out.rssi, baseband=bb)
 

@@ -8,8 +8,9 @@
   * `BlockTimer` — streaming per-stage wall-time stats (EWMA + percentiles)
     for the host loop: source wait, device step, sink push
   * `log` — structured logging setup (one line per event, key=value)
-  * `span` / `count_sync` — the program's own spans and host↔device
-    crossings, recorded only while a `torch.profiler` runs (below)
+  * `span` / `count_sync` / `count_plan` — the program's own spans,
+    host↔device crossings and plan builds, recorded only while a
+    `torch.profiler` runs (below)
 
 `BlockTimer`, `ThroughputMeter` and `get_logger` are the reference's.
 
@@ -24,11 +25,13 @@ by chunk), the index of the span that was open around it
 (-1 for a root) and a chunk identifier, which a root span draws anew
 unless given one and its children inherit. `count_sync()` counts one
 blocking host↔device crossing under the innermost open span's chunk.
-`spans()`, `host_syncs()` read what was recorded, `clear_spans()` empties
-both. With no profiler running a span costs one flag read: nothing is
-recorded and nothing is counted. `trace` writes the spans of its block
-into the Chrome trace it writes, as complete events of category
-`program_span`.
+`count_plan(built)` records whether the chunk found its fixed plan held
+or built (part of) it (`utils/held.py`): a chunk that built anything
+counts as built. `spans()`, `host_syncs()`, `plans()` read what was
+recorded, `clear_spans()` empties all three. With no profiler running a
+span costs one flag read: nothing is recorded and nothing is counted.
+`trace` writes the spans of its block into the Chrome trace it writes, as
+complete events of category `program_span`.
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ class _Recorder:
         self.chunk_ids: list = []
         self.stack: list = []
         self.syncs: dict = defaultdict(int)
+        self.plans: dict = {}
 
     def open(self, name: str, chunk: int | None) -> "_Recorder":
         st = self.stack
@@ -158,6 +162,15 @@ def count_sync() -> None:
         _RECORDER.syncs[_RECORDER.chunk()] += 1
 
 
+def count_plan(built: bool) -> None:
+    """Record, under the innermost open span's chunk, that the chunk found
+    its plan held (False) or built some of it (True)."""
+    if _autograd_profiler._is_profiler_enabled:
+        plans = _RECORDER.plans
+        chunk = _RECORDER.chunk()
+        plans[chunk] = plans.get(chunk, False) or built
+
+
 def spans() -> list[Span]:
     """Every span recorded since the last `clear_spans()`, in the order
     they opened (the index is what `Span.parent` refers to)."""
@@ -170,8 +183,14 @@ def host_syncs() -> dict:
     return dict(_RECORDER.syncs)
 
 
+def plans() -> dict:
+    """{chunk identifier: True where the chunk built (some of) its plan,
+    False where it found it held} since the last `clear_spans()`."""
+    return dict(_RECORDER.plans)
+
+
 def clear_spans() -> None:
-    """Forget every recorded span and crossing."""
+    """Forget every recorded span, crossing and plan record."""
     _RECORDER.clear()
 
 
