@@ -11,7 +11,10 @@ against the cell's limit in `sdrbench/limits/<cell>.json`:
   state_err    the worst state leaf's ‖state − ref‖ / ‖ref‖: the PFB
                history, the interpolator's history and each leaf of the
                demodulator's (AM: the DC blocker's two samples, the AGC's
-               peak and gain), all channels at once
+               peak and gain), all channels at once; the squelch gate's
+               leaves (its 0/1 state and its gain, both in [0, 1]) read
+               their largest |state − ref| instead, so one channel whose
+               gate decided otherwise reads 1
 
 An answer or a state that never came, or holds a NaN, reads infinite.
 Besides, every timed chunk has to launch each kernel the configuration
@@ -26,6 +29,7 @@ from pathlib import Path
 
 import torch
 
+from sdrbench.reference import squelch
 from sdrbench.reference.pipeline import RefState
 
 NAMES = ("audio_err", "planes_err", "rssi_err_db", "state_err")
@@ -66,7 +70,8 @@ def abs_max(got: torch.Tensor, ref: torch.Tensor) -> float:
 def state_errs(got: RefState, ref: RefState) -> tuple[float, float]:
     """(planes_err, state_err) of a state against the reference's."""
     leaves = [rel(got.pfb, ref.pfb), rel(got.interp, ref.interp)]
-    leaves += [rel(got.leaves[k], v) for k, v in ref.leaves.items()]
+    leaves += [(abs_max if k in squelch.LEAVES else rel)(got.leaves[k], v)
+               for k, v in ref.leaves.items()]
     return rel_rows(got.os, ref.os), max(leaves)
 
 

@@ -75,6 +75,10 @@ def due_times(t_open: float, seconds: float, period: float) -> np.ndarray:
 def run(cell, make_system) -> dict:
     tr, conf, device = cell.traffic, cell.conf, cell.device
     dep = conf["deployment"]
+    if "squelch" in dep:
+        # the gate decides on each chunk's raw RSSI, which the monitor's
+        # smoothed table does not give for the edge rule (`replay` does)
+        raise ValueError("the live driver does not judge a squelch gate")
     M, frames = dep["n_chan"], tr["frames"]
     n_ring = tr["ring_chunks"]
     period = frames * M / dep["fs_in"]
@@ -173,7 +177,7 @@ def run(cell, make_system) -> dict:
         ks = range(b0, min(n_chunks, b0 + block))
         re = torch.cat([host[k % n_ring][0] for k in ks]).to(device)
         im = torch.cat([host[k % n_ring][1] for k in ks]).to(device)
-        rs, r_audio, r_rssi = pipeline.step(tables, rs, re, im, frames)
+        rs, r_audio, r_rssi, _ = pipeline.step(tables, rs, re, im, frames)
         r_sel = r_audio[listened].reshape(len(ks), -1)
         r_rssi = r_rssi.cpu().numpy()
         for j, k in enumerate(ks):

@@ -26,6 +26,11 @@ from the same int16 chunks):
     every channel in the last one, whose whole output the loop holds
     anyway; the RSSI and the state of every channel.
 Every timed chunk has to launch each kernel the configuration counts.
+Where the deployment has a squelch gate, the reference takes its decision
+for a channel in a chunk from the program's RSSI wherever its own lies
+within the cell's `rssi_err_db` limit of a threshold (the edge rule of
+`reference/squelch.py`); a note gives how many did, how near the others
+came, and how many gates opened and shut in the compared chunks.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 
 from sdrbench import check, signal
-from sdrbench.reference import pipeline
+from sdrbench.reference import pipeline, squelch
 
 
 class Reservoir:
@@ -151,30 +156,39 @@ def run(cell, make_system) -> dict:
     del sys_, st, st_in
     cell.free()
     tables = pipeline.make_tables(dep, device)
+    margin = cell.limits["rssi_err_db"]
     rd = check.Readings()
     ref_bins = torch.as_tensor(bins, device=device)
+    made = squelch.NONE
 
-    def ref_step(state, k):
-        return pipeline.step(tables, state, *ring[k % n_ring], frames)
-
-    def compare(ref_out, got_audio, got_rssi, got_state, ref_rows):
-        r_state, r_audio, r_rssi = ref_out
-        rd.add("audio_err", check.rel_rows(got_audio.T, r_audio[ref_rows]))
-        rd.add("rssi_err_db",
-               check.abs_max(got_rssi[bin_row, 0], r_rssi[:, 0]))
-        p, s = check.state_errs(to_ref(got_state), r_state)
+    def compare(state, k, got_audio, got_rssi, got_state, ref_rows):
+        """Chunk k from `state` against the program's; the reference's
+        state after it."""
+        nonlocal made
+        rssi = got_rssi[bin_row]
+        ref = pipeline.step(tables, state, *ring[k % n_ring], frames,
+                            edge_rssi=rssi, margin=margin)
+        made = squelch.merge(made, ref.gate)
+        rd.add("audio_err", check.rel_rows(got_audio.T, ref.audio[ref_rows]))
+        rd.add("rssi_err_db", check.abs_max(rssi[:, 0], ref.rssi[:, 0]))
+        p, s = check.state_errs(to_ref(got_state), ref.state)
         rd.add("planes_err", p)
         rd.add("state_err", s)
+        return ref.state
 
     rs = pipeline.zero_state(tables, device)
     for k in range(first):
         _, got, rssi, st_out = kept_first.pop(k)
-        ref_out = ref_step(rs, k)
-        rs = ref_out[0]
-        compare(ref_out, got, rssi, st_out, ref_bins)
+        rs = compare(rs, k, got, rssi, st_out, ref_bins)
     for k, st_in, got, rssi, st_out in kept_late.values():
-        compare(ref_step(to_ref(st_in), k), got, rssi, st_out, ref_bins)
+        compare(to_ref(st_in), k, got, rssi, st_out, ref_bins)
     k, st_in, got, rssi, st_out = last
-    compare(ref_step(to_ref(st_in), k), got, rssi, st_out, slice(None))
+    compare(to_ref(st_in), k, got, rssi, st_out, slice(None))
+    if tables.sq is not None:
+        out["notes"].append(
+            f"squelch: {made.edge} channel-chunks decided at an edge, on the "
+            f"program's RSSI (within {margin} dB of a threshold); the "
+            f"nearest other decision {made.clear_db} dB from one; "
+            f"{made.opened} gates opened and {made.shut} shut")
     out["readings"] = rd
     return out

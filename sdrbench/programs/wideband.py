@@ -6,7 +6,9 @@ A configuration file names the tier (`profile`, a key of the program's
 `WidebandConfig` fields (`wideband`), the layout its output rows follow
 (`rows`, a key of `design.ROW_ORDERS`), and how often each kernel wrapper
 launches a chunk (`launches`: {"<module of ops/cuda>.<wrapper>": count}),
-which the drivers hold every timed chunk to.
+which the drivers hold every timed chunk to. A `squelch` block in the
+deployment turns the receiver's squelch gate on (`squelch_enabled`) with
+its thresholds and ramp; `wideband` may not say otherwise.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import importlib
 
 import torch
 
-from sdrbench.reference import design, modes
+from sdrbench.reference import design, modes, squelch
 from sdrbench.reference.pipeline import RefState
 
 
@@ -27,6 +29,12 @@ def config(conf: dict, frames: int):
     dep = conf["deployment"]
     kw = dict(wideband.PROFILES[conf["profile"]]) if conf["profile"] else {}
     kw.update(conf["wideband"])
+    gate = "squelch" in dep
+    if kw.get("squelch_enabled", gate) != gate:
+        raise ValueError("wideband.squelch_enabled contradicts the "
+                         "deployment's squelch block")
+    if gate:
+        kw["squelch_enabled"] = True
     return wideband.WidebandConfig(
         fs_in=dep["fs_in"], n_chan=dep["n_chan"],
         chunk_in=dep["n_chan"] * frames, taps_per=dep["taps_per"],
@@ -41,6 +49,12 @@ def _agc_kwargs(dep: dict) -> dict:
                 target_db=a["target_db"], attack_ms=a["attack_ms"])
 
 
+def _squelch_kwargs(dep: dict) -> dict:
+    q = dep["squelch"]
+    return dict(enabled=True, thresh_db=q["thresh_db"],
+                hyst_db=q["hyst_db"], ramp_samples=q["ramp_samples"])
+
+
 def _leaf(obj, path: str) -> torch.Tensor:
     for name in path.split("."):
         obj = getattr(obj, name)
@@ -49,7 +63,8 @@ def _leaf(obj, path: str) -> torch.Tensor:
 
 def ref_state(st, leaves: tuple) -> RefState:
     """The program's stream state as the reference holds it (bins in
-    order, float64); `leaves` names the demodulator's."""
+    order, float64); `leaves` names the chain state's leaves the reference
+    carries besides the histories (the demodulator's, and the gate's)."""
     c = st.chain
 
     def cplx(p):
@@ -68,12 +83,16 @@ class Program:
         dep = conf["deployment"]
         self.device = torch.device(device)
         self.cfg = config(conf, frames)
+        kwargs = dict(agc_kwargs=_agc_kwargs(dep))
+        leaves = modes.load(dep["mode"]).LEAVES
+        if "squelch" in dep:
+            kwargs["squelch_kwargs"] = _squelch_kwargs(dep)
+            leaves += squelch.LEAVES
         self.params = wideband.make_params(self.cfg, device=self.device,
-                                           agc_kwargs=_agc_kwargs(dep))
+                                           **kwargs)
         self.row_bins = design.row_order(conf["rows"], dep["n_chan"])
         # a plain function, so that it outlives the program's parameters
-        self.ref_state = functools.partial(
-            ref_state, leaves=modes.load(dep["mode"]).LEAVES)
+        self.ref_state = functools.partial(ref_state, leaves=leaves)
         self.launches_per_chunk = dict(conf["launches"])
 
     def init_state(self):

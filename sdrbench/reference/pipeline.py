@@ -4,9 +4,10 @@ One capture of sc16 IQ (±32768 ≡ ±1.0) → critically sampled polyphase
 channelizer (M channels of fs/M, the K-tap fold and an M-point DFT) →
 per channel: the complex passband FIR, the RSSI of the filtered signal,
 the demodulator of the configuration's mode (`modes/<mode>.py`, the AGC
-with it) and the L× polyphase interpolator to the audio rate. Every
-recursion runs on explicit state, so a stream cut into any blocks gives
-the same result as one block.
+with it), the L× polyphase interpolator to the audio rate and, where the
+deployment has a `squelch` block, the squelch gate on the audio, chunk by
+chunk (`squelch.py`). Every recursion runs on explicit state, so a stream
+cut into any blocks gives the same result as one block.
 
 Written from the configuration's numbers alone: it imports nothing of the
 program and takes none of its tables. `rnd`, where given, rounds the
@@ -20,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from sdrbench.reference import design, modes
+from sdrbench.reference import design, modes, squelch
 
 I16_SCALE = 1.0 / 32768.0
 
@@ -36,6 +37,7 @@ class Tables(NamedTuple):
     floor_db: float
     mode: object            # the demodulator's module
     mt: object              # its tables
+    sq: squelch.SquelchTables | None    # the gate's; None without one
 
 
 class RefState(NamedTuple):
@@ -43,7 +45,15 @@ class RefState(NamedTuple):
     pfb: torch.Tensor       # complex128 [(K−1)·M] input history
     os: torch.Tensor        # complex128 [M, n_taps − 1] FIR history
     interp: torch.Tensor    # float64 [M, per − 1] interpolator history
-    leaves: dict            # the demodulator's, {leaf: float64 [M]}
+    leaves: dict            # the demodulator's and the gate's,
+                            # {leaf: float64 [M]}
+
+
+class Step(NamedTuple):
+    state: RefState
+    audio: torch.Tensor     # float64 [M, nf·L]
+    rssi: torch.Tensor      # dB [M, chunks], a column a chunk
+    gate: squelch.Decisions  # what the gate decided
 
 
 def make_tables(dep: dict, device) -> Tables:
@@ -52,6 +62,7 @@ def make_tables(dep: dict, device) -> Tables:
     iq_rate = dep["fs_in"] // M
     proto = design.pfb_prototype(M, K)
     mode = modes.load(dep["mode"])
+    P = design.interp_matrix(iq_rate, dep["audio_rate"])
     f64 = dict(dtype=torch.float64, device=device)
     return Tables(
         M=M, K=K, n_taps=dep["n_taps"],
@@ -59,10 +70,11 @@ def make_tables(dep: dict, device) -> Tables:
         h=torch.tensor(design.passband_taps(mode.PASSBAND, iq_rate,
                                             dep["n_taps"]),
                        dtype=torch.complex128, device=device),
-        P=torch.tensor(design.interp_matrix(iq_rate, dep["audio_rate"]),
-                       **f64),
+        P=torch.tensor(P, **f64),
         cal_db=dep["rssi_cal_db"], floor_db=dep["rssi_floor_db"],
-        mode=mode, mt=mode.tables(dep, iq_rate))
+        mode=mode, mt=mode.tables(dep, iq_rate),
+        sq=squelch.tables(dep["squelch"], P.shape[1])
+        if "squelch" in dep else None)
 
 
 def zero_state(t: Tables, device) -> RefState:
@@ -73,7 +85,8 @@ def zero_state(t: Tables, device) -> RefState:
                        device=device),
         interp=torch.zeros(M, t.P.shape[0] - 1, dtype=torch.float64,
                            device=device),
-        leaves=t.mode.zero(M, device))
+        leaves=t.mode.zero(M, device)
+        | (squelch.zero(M, device) if t.sq is not None else {}))
 
 
 def dft_matrix(M: int, device) -> torch.Tensor:
@@ -88,12 +101,13 @@ def _complex_round(rnd, z: torch.Tensor) -> torch.Tensor:
 
 
 def step(t: Tables, st: RefState, re16: torch.Tensor, im16: torch.Tensor,
-         chunk_frames: int, rnd=None
-         ) -> tuple[RefState, torch.Tensor, torch.Tensor]:
+         chunk_frames: int, rnd=None, edge_rssi: torch.Tensor | None = None,
+         margin: float = 0.0) -> Step:
     """One block of n = nf·M samples (int16 planes on the tables' device),
-    nf a multiple of `chunk_frames`. Returns (state, audio [M, nf·L]
-    float64, rssi [M, nf / chunk_frames] dB, one column per chunk), bins
-    in order."""
+    nf a multiple of `chunk_frames`, bins in order. `edge_rssi` [M, nf /
+    chunk_frames], a system's RSSI for the block's chunks, takes the
+    gate's decision wherever the reference's RSSI lies within `margin` dB
+    of a threshold (`squelch.apply`)."""
     M, K, ov = t.M, t.K, t.n_taps - 1
     x = torch.complex(re16.double(), im16.double()) * I16_SCALE
     nf = x.numel() // M
@@ -129,6 +143,12 @@ def step(t: Tables, st: RefState, re16: torch.Tensor, im16: torch.Tensor,
     audio = seg2[:, 0:nf, None] * t.P[0]
     for m in range(1, per):
         audio += seg2[:, m:m + nf, None] * t.P[m]
+    audio = audio.reshape(M, nf * L)
+    made = squelch.NONE
+    if t.sq is not None:
+        audio, sq_leaves, made = squelch.apply(t.sq, audio, rssi,
+                                               st.leaves, edge_rssi, margin)
+        leaves |= sq_leaves
     new = RefState(pfb=seg[-(K - 1) * M:].clone(), os=xe[:, -ov:].clone(),
                    interp=seg2[:, -(per - 1):].clone(), leaves=leaves)
-    return new, audio.reshape(M, nf * L), rssi
+    return Step(new, audio, rssi, made)

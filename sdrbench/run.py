@@ -96,13 +96,15 @@ def applies(metric: dict, cell: str) -> bool:
 
 
 class Cell:
-    """One run of one cell: what the driver reads, and the set-up, memory
-    and clock bookkeeping around its window."""
+    """One run of one cell: what the driver reads, the limits that decide
+    `correct`, and the set-up, memory and clock bookkeeping around its
+    window."""
 
-    def __init__(self, name, conf, traffic, seed, seconds, trace, device):
+    def __init__(self, name, conf, traffic, seed, seconds, trace, device,
+                 limits):
         self.name, self.conf, self.traffic = name, conf, traffic
         self.seed, self.seconds, self.trace = seed, seconds, trace
-        self.device = device
+        self.device, self.limits = device, limits
         self.setup_s = None
         self._setup_peak = 0
 
@@ -167,8 +169,7 @@ def power_limit() -> str:
         return "not read"
 
 
-def execute(cell: Cell, make_system, spec: dict, limits: dict
-            ) -> tuple[dict, list[str]]:
+def execute(cell: Cell, make_system, spec: dict) -> tuple[dict, list[str]]:
     """Run the cell's driver on the system `make_system(conf, frames,
     device)` builds and make the result line; returns (result, lines for
     standard error)."""
@@ -176,7 +177,7 @@ def execute(cell: Cell, make_system, spec: dict, limits: dict
     driver = importlib.import_module(
         f"sdrbench.drivers.{cell.traffic['driver']}")
     res = driver.run(cell, make_system)
-    ok, compared = res["readings"].verdict(limits)
+    ok, compared = res["readings"].verdict(cell.limits)
     lines = list(res.get("notes", []))
     if not res.get("launches_ok", True):
         lines.append("not correct: the timed chunks did not launch each "
@@ -245,9 +246,9 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     cell = Cell(wl["name"], conf, traffic, args.seed, args.seconds,
-                bool(args.trace), device)
+                bool(args.trace), device, limits)
     from sdrbench.system import SYSTEMS
-    result, lines = execute(cell, SYSTEMS[args.system], spec, limits)
+    result, lines = execute(cell, SYSTEMS[args.system], spec)
     bad = forbidden_modules()
     if bad:
         print(f"sdrbench: loaded {bad}: the benchmark runs the port alone",

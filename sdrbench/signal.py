@@ -14,7 +14,15 @@ with W = e^{2πi/M}: a constant row plus a product of a [frames, 2C] and a
 in float32 with TF32 off. It is then quantized to int16 (±32768 ≡ ±1.0),
 saturating; the clipped samples are counted.
 
-Every seed gives the same sizes and carrier count, only other values.
+A `keying` block {"share", "period_chunks", "on_chunks"} keys a share of
+the carriers (drawn from the seed) on and off at chunk boundaries: carrier
+c sounds in chunk k where (k + o_c) mod period_chunks < on_chunks, o_c
+drawn from the seed, and is silent otherwise, its phase running on. The
+constant row is then a [frames, C] by [C, M] product too. Without the
+block every carrier sounds throughout.
+
+Every seed gives the same sizes and carrier count (and keyed count), only
+other values.
 """
 
 from __future__ import annotations
@@ -33,6 +41,20 @@ class Capture(NamedTuple):
     im: torch.Tensor
     carrier_bins: np.ndarray  # the bins that hold a carrier
     clipped: int
+    keys: np.ndarray | None   # bool [carriers, n_chunks]: each sounds;
+                              # None without keying
+
+
+def _keys(key: dict, groups: int, n_chunks: int, rng: np.random.Generator
+          ) -> np.ndarray:
+    """[groups, n_chunks] bool: whether each carrier sounds in each chunk."""
+    period = key["period_chunks"]
+    keyed = rng.choice(groups, round(key["share"] * groups), replace=False)
+    phase = rng.integers(0, period, len(keyed))
+    on = np.ones((groups, n_chunks), dtype=bool)
+    on[keyed] = (np.arange(n_chunks) + phase[:, None]) % period \
+        < key["on_chunks"]
+    return on
 
 
 def _carriers(sig: dict, n_chan: int, fs: float, rng: np.random.Generator
@@ -57,6 +79,8 @@ def make_capture(sig: dict, n_chan: int, fs: float, n_chunks: int,
     car = _carriers(sig, n_chan, fs, rng)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(rng.integers(0, 2 ** 63)))
+    keys = (_keys(sig["keying"], len(car["bins"]), n_chunks, rng)
+            if "keying" in sig else None)
     M = n_chan
     r = np.arange(M)
     # [C, M] rows: the carrier at its bin, and its two sidebands
@@ -72,6 +96,11 @@ def make_capture(sig: dict, n_chan: int, fs: float, n_chunks: int,
     Vr, Vi = torch.tensor(V.real, **f32), torch.tensor(V.imag, **f32)
     base_r = torch.tensor(base.real, **f32)
     base_i = torch.tensor(base.imag, **f32)
+    if keys is not None:
+        # each carrier's constant row, and its switch chunk by chunk
+        aw = a * wb
+        Br, Bi = torch.tensor(aw.real, **f32), torch.tensor(aw.imag, **f32)
+        K = torch.tensor(keys, **f32)
     total = n_chunks * frames
     re = torch.empty(total, M, dtype=torch.int16, device=device)
     im = torch.empty_like(re)
@@ -86,11 +115,16 @@ def make_capture(sig: dict, n_chan: int, fs: float, n_chunks: int,
             ph = torch.remainder(torch.outer(t * M, omega) + theta,
                                  2.0 * np.pi)
             Ur, Ui = torch.cos(ph).float(), torch.sin(ph).float()
+            b_r, b_i = base_r, base_i
+            if keys is not None:
+                k = K[:, t.long() // frames].T              # [nt, C]
+                Ur, Ui = Ur * k, Ui * k
+                b_r, b_i = k @ Br, k @ Bi
             # cos terms: U = e^{i·ph} against the + rows, conj against −
             U_r = torch.cat([Ur, Ur], 1)
             U_i = torch.cat([Ui, -Ui], 1)
-            for out, b, p, q, sgn in ((re, base_r, Vr, Vi, -1.0),
-                                      (im, base_i, Vi, Vr, 1.0)):
+            for out, b, p, q, sgn in ((re, b_r, Vr, Vi, -1.0),
+                                      (im, b_i, Vi, Vr, 1.0)):
                 x = U_r @ p + sgn * (U_i @ q) + b
                 x += sigma * torch.randn(x.shape, generator=gen, **f32)
                 v = torch.round(x * I16_FULL)
@@ -101,4 +135,5 @@ def make_capture(sig: dict, n_chan: int, fs: float, n_chunks: int,
     chunk_in = frames * M
     return Capture(re=re.reshape(n_chunks, chunk_in),
                    im=im.reshape(n_chunks, chunk_in),
-                   carrier_bins=car["bins"], clipped=int(clipped))
+                   carrier_bins=car["bins"], clipped=int(clipped),
+                   keys=keys)

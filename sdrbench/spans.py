@@ -295,10 +295,10 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     cell = R.Cell(wl["name"], conf, traffic, args.seed, args.seconds, True,
-                  device)
+                  device, check.load_limits(wl["name"]))
     driver = importlib.import_module(f"sdrbench.drivers.{traffic['driver']}")
     res = driver.run(cell, SYSTEMS["program"])
-    ok, _ = res["readings"].verdict(check.load_limits(wl["name"]))
+    ok, _ = res["readings"].verdict(cell.limits)
     tr = res["trace"]
     ctx = {"trace": tr, "conf": conf, "frames": traffic["frames"],
            "dispatch_ms": res.get("dispatch_ms")}

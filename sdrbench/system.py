@@ -48,8 +48,10 @@ class Control:
         return pipeline.zero_state(self.tables, self.device)
 
     def step(self, state, iq16):
-        st, audio, rssi = pipeline.step(self.tables, state, iq16[0].to(
-            self.device), iq16[1].to(self.device), self.frames, self.rnd)
+        # a squelch gate decides on the control's own (rounded) RSSI
+        st, audio, rssi, _ = pipeline.step(
+            self.tables, state, iq16[0].to(self.device),
+            iq16[1].to(self.device), self.frames, self.rnd)
         return st, audio.T, rssi
 
     def launches(self):

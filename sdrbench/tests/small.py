@@ -34,9 +34,9 @@ def cell(name: str, seed: int = SEED, seconds: float = 0.6,
     else:
         traffic.update(ring_chunks=8, check=dict(ref_block_chunks=4))
     return R.Cell(wl["name"], conf, traffic, seed, seconds, False,
-                  torch.device("cpu"))
+                  torch.device("cpu"), check.load_limits(wl["name"]))
 
 
 def execute(c: R.Cell, make_system) -> tuple[dict, list[str]]:
     torch.set_num_threads(4)
-    return R.execute(c, make_system, R.load_spec(), check.load_limits(c.name))
+    return R.execute(c, make_system, R.load_spec())

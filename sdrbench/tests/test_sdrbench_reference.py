@@ -39,7 +39,7 @@ def test_reference_matches_the_port_plain_path(name):
     for k in range(3):
         iq = (cap.re[k], cap.im[k])
         st, audio, rssi = prog.step(st, iq)
-        rs, r_audio, r_rssi = pipeline.step(tables, rs, *iq, frames)
+        rs, r_audio, r_rssi, _ = pipeline.step(tables, rs, *iq, frames)
         assert check.rel_rows(audio.T, r_audio[rows]) < tol
         assert check.abs_max(rssi[:, 0], r_rssi[rows, 0]) < tol
         planes, state = check.state_errs(prog.ref_state(st), rs)
@@ -58,9 +58,9 @@ def test_blocks_of_any_length_give_one_stream():
                             dtype=torch.int16) for _ in range(2))
     one = pipeline.step(t, pipeline.zero_state(t, "cpu"), re, im, 128)
     half = 256 * 128
-    s1, a1, r1 = pipeline.step(t, pipeline.zero_state(t, "cpu"), re[:half],
+    s1, a1, r1, _ = pipeline.step(t, pipeline.zero_state(t, "cpu"), re[:half],
                                im[:half], 128)
-    s2, a2, r2 = pipeline.step(t, s1, re[half:], im[half:], 128)
+    s2, a2, r2, _ = pipeline.step(t, s1, re[half:], im[half:], 128)
     assert torch.allclose(one[1], torch.cat([a1, a2], 1), rtol=1e-9,
                           atol=1e-12)
     assert torch.allclose(one[2], torch.cat([r1, r2], 1), atol=1e-9)
