@@ -30,6 +30,11 @@ Under a running `torch.profiler` (`utils/profiling.span`),
 children: `chain.tail.pack` (the kernel's inputs: the state rows, the
 history, the parameter vector), `chain.tail.launch` (the kernel's call) and
 `chain.tail.unpack` (the RSSI in dB, the squelch, the state from the rows).
+Every squelch gate, on any tail, runs in a span `chain.tail.squelch` of
+its own (`profiling.device_span`: its device work marked in the stream),
+with the gate's state permuted into and out of the planar row order where
+there is one; after it, `profiling.count_gate` keeps what the gate met
+(the gains in, the gates out) for `profiling.gates()` to count.
 """
 
 from __future__ import annotations
@@ -419,6 +424,18 @@ def _squelch_tail(params: ChainParams, cfg: ChainConfig
     return _SQUELCH_TAIL(tuple(params.squelch), cfg.upsample)
 
 
+def _gate(params: squelch_ops.SquelchParams, state: squelch_ops.SquelchState,
+          audio: torch.Tensor, rssi_db: torch.Tensor
+          ) -> tuple[squelch_ops.SquelchState, torch.Tensor]:
+    """The squelch gate on chain-major audio in its span, then kept for
+    the gate counter."""
+    with profiling.device_span("chain.tail.squelch", audio):
+        gated, audio = squelch_ops.apply_squelch(params, state, audio,
+                                                 rssi_db)
+    profiling.count_gate(state.gain, gated.open_)
+    return gated, audio
+
+
 def _process_tail_pallas(cfg: ChainConfig, params: ChainParams,
                          state: ChainState, phase: torch.Tensor,
                          y: torch.Tensor, rssi: torch.Tensor,
@@ -433,9 +450,8 @@ def _process_tail_pallas(cfg: ChainConfig, params: ChainParams,
         hang_window=tp.hang)
     sq_state = state.squelch
     if cfg.squelch_enabled:
-        sq_state, audio = squelch_ops.apply_squelch(
-            _squelch_tail(params, cfg), state.squelch, audio,
-            torch.mean(rssi, dim=-1))
+        sq_state, audio = _gate(_squelch_tail(params, cfg), state.squelch,
+                                audio, torch.mean(rssi, dim=-1))
     dstate, astate, icarry = _unpack_rows(cfg, state, st2)
     new_state = ChainState(phase=phase, os_carry=os_carry, demod=dstate,
                            agc=astate, interp_carry=icarry,
@@ -523,14 +539,16 @@ def process_tail_tmajor(cfg: ChainConfig, params: ChainParams,
                 + smeter.DEFAULT_CAL_DB, smeter.RSSI_FLOOR_DB)[:, None]
             sq_state = state.squelch
             if cfg.squelch_enabled:
-                sq_in = state.squelch if order is None else \
-                    squelch_ops.SquelchState(
-                        *(v[order] for v in state.squelch))
-                sq_state, audioT = squelch_ops.apply_squelch_tmajor(
-                    _squelch_tail(params, cfg), sq_in, audioT, rssi[:, 0])
-                if inv is not None:
-                    sq_state = squelch_ops.SquelchState(
-                        *(v[inv] for v in sq_state))
+                with profiling.device_span("chain.tail.squelch", audioT):
+                    sq_in = state.squelch if order is None else \
+                        squelch_ops.SquelchState(
+                            *(v[order] for v in state.squelch))
+                    gated, audioT = squelch_ops.apply_squelch_tmajor(
+                        _squelch_tail(params, cfg), sq_in, audioT,
+                        rssi[:, 0])
+                    sq_state = gated if inv is None else \
+                        squelch_ops.SquelchState(*(v[inv] for v in gated))
+                profiling.count_gate(sq_in.gain, gated.open_)
             dstate, astate, icarry = _unpack_rows(cfg, state, st2, inv)
         new_state = ChainState(phase=phase, os_carry=os_carry, demod=dstate,
                                agc=astate, interp_carry=icarry,
@@ -606,8 +624,8 @@ def process_traced(cfg: ChainConfig, params: ChainParams, state: ChainState,
                                   decimation=cfg.agc_decimation)
     sq_state = state.squelch
     if cfg.squelch_enabled:
-        sq_state, audio = squelch_ops.apply_squelch(
-            params.squelch, state.squelch, audio, torch.mean(rssi, dim=-1))
+        sq_state, audio = _gate(params.squelch, state.squelch, audio,
+                                torch.mean(rssi, dim=-1))
     if cfg.mode.upper() == "IQ":
         out_audio = cx.CX(audio.real, audio.imag)
         icarry = state.interp_carry

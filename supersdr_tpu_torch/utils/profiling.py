@@ -8,9 +8,9 @@
   * `BlockTimer` — streaming per-stage wall-time stats (EWMA + percentiles)
     for the host loop: source wait, device step, sink push
   * `log` — structured logging setup (one line per event, key=value)
-  * `span` / `count_sync` / `count_plan` — the program's own spans,
-    host↔device crossings and plan builds, recorded only while a
-    `torch.profiler` runs (below)
+  * `span` / `count_sync` / `count_plan` / `count_gate` — the program's
+    own spans, host↔device crossings, plan builds and squelch gates,
+    recorded only while a `torch.profiler` runs (below)
 
 `BlockTimer`, `ThroughputMeter` and `get_logger` are the reference's.
 
@@ -27,9 +27,22 @@ unless given one and its children inherit. `count_sync()` counts one
 blocking host↔device crossing under the innermost open span's chunk.
 `count_plan(built)` records whether the chunk found its fixed plan held
 or built (part of) it (`utils/held.py`): a chunk that built anything
-counts as built. `spans()`, `host_syncs()`, `plans()` read what was
-recorded, `clear_spans()` empties all three. With no profiler running a
-span costs one flag read: nothing is recorded and nothing is counted.
+counts as built. `count_gate(gain_in, open_out)` keeps, under the chunk,
+what a squelch gate met, and `gates()` counts it on the device: the
+channels settled open (entered at gain 1 and decided open: its audio
+passes unchanged), settled shut (entered at gain 0 and decided shut: its
+audio is zeros) and moving (the rest). `spans()`, `host_syncs()`,
+`plans()`, `gates()` read what was recorded (`gates()` reads the device
+once), `clear_spans()` empties all four. With no profiler running a span
+costs one flag read: nothing is recorded and nothing is counted.
+
+`device_span(name, like)` is a span whose device work can be found in a
+CUDA-only device trace, which holds no host events: where the tensor
+`like` lies on a CUDA device it launches an empty marker kernel
+(`MARKER_KERNEL`, torch's spin kernel for zero cycles) on the current
+stream as it opens and as it closes, so the operations the span launched
+are those between its two markers in the stream's order. Off a profiler
+it is `span`'s one flag read.
 `trace` writes the spans of its block into the Chrome trace it writes, as
 complete events of category `program_span`.
 """
@@ -48,9 +61,12 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
+import torch
 import torch.autograd.profiler as _autograd_profiler
 
 SPAN_CATEGORY = "program_span"
+# the name the device trace gives `device_span`'s marker kernel
+MARKER_KERNEL = "spin_kernel"
 
 
 class Span(NamedTuple):
@@ -83,6 +99,7 @@ class _Recorder:
         self.stack: list = []
         self.syncs: dict = defaultdict(int)
         self.plans: dict = {}
+        self.gates: dict = {}
 
     def open(self, name: str, chunk: int | None) -> "_Recorder":
         st = self.stack
@@ -119,6 +136,27 @@ class _Recorder:
                                       self.parents, self.chunk_ids)]
 
 
+class _MarkedSpan:
+    """A span on a CUDA device, bracketed by a marker kernel at each end
+    on the current stream."""
+
+    def __init__(self, name: str, device: torch.device):
+        self.name, self.device = name, device
+
+    def __enter__(self):
+        _RECORDER.open(self.name, None)
+        _mark(self.device)
+
+    def __exit__(self, *exc):
+        _mark(self.device)
+        return _RECORDER.__exit__(*exc)
+
+
+def _mark(device: torch.device) -> None:
+    with torch.cuda.device(device):
+        torch.cuda._sleep(0)
+
+
 class _NoSpan:
     """The span handed out while no profiler runs: does nothing."""
 
@@ -140,6 +178,17 @@ def span(name: str, chunk: int | None = None):
     if not _autograd_profiler._is_profiler_enabled:
         return _NO_SPAN
     return _RECORDER.open(name, chunk)
+
+
+def device_span(name: str, like: torch.Tensor):
+    """`span` whose device work is marked in the stream where `like` lies
+    on a CUDA device (see the module's docstring); a nested span takes
+    its parent's chunk."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    if like.device.type != "cuda":
+        return _RECORDER.open(name, None)
+    return _MarkedSpan(name, like.device)
 
 
 def recording() -> bool:
@@ -171,6 +220,16 @@ def count_plan(built: bool) -> None:
         plans[chunk] = plans.get(chunk, False) or built
 
 
+def count_gate(gain_in: torch.Tensor, open_out: torch.Tensor) -> None:
+    """Keep, under the innermost open span's chunk, the gain each channel
+    entered a squelch gate with and the gate it decided, for `gates()` to
+    count: nothing is launched here, since a kernel's first launch inside
+    a traced slice loads its module and holds the device idle."""
+    if _autograd_profiler._is_profiler_enabled:
+        _RECORDER.gates.setdefault(_RECORDER.chunk(), []).append(
+            (gain_in, open_out))
+
+
 def spans() -> list[Span]:
     """Every span recorded since the last `clear_spans()`, in the order
     they opened (the index is what `Span.parent` refers to)."""
@@ -189,8 +248,28 @@ def plans() -> dict:
     return dict(_RECORDER.plans)
 
 
+def _met(gain_in: torch.Tensor, open_out: torch.Tensor) -> torch.Tensor:
+    """[settled open, settled shut, moving] channels of one gate."""
+    settled_open = (gain_in == 1) & (open_out == 1)
+    settled_shut = (gain_in == 0) & (open_out == 0)
+    return torch.stack([settled_open, settled_shut,
+                        ~(settled_open | settled_shut)]).sum(-1)
+
+
+def gates() -> dict:
+    """{chunk identifier: (settled open, settled shut, moving)} channels
+    the squelch gates met since the last `clear_spans()`, counted on the
+    device and read in one copy."""
+    g = _RECORDER.gates
+    if not g:
+        return {}
+    counts = torch.stack([sum(_met(*m) for m in met)
+                          for met in g.values()]).tolist()
+    return {c: tuple(n) for c, n in zip(g, counts)}
+
+
 def clear_spans() -> None:
-    """Forget every recorded span, crossing and plan record."""
+    """Forget every recorded span, crossing, plan and gate record."""
     _RECORDER.clear()
 
 

@@ -45,6 +45,10 @@ UNFUSED = {"wideband.process": None, "wideband.ingest": "wideband.process",
            "chain.process": "wideband.process"}
 
 
+GATED = dict(squelch_enabled=True)
+SQUELCH = dict(enabled=True, thresh_db=-70.0, hyst_db=6.0, ramp_samples=240)
+
+
 @pytest.fixture(autouse=True)
 def empty_recorder():
     profiling.clear_spans()
@@ -58,9 +62,10 @@ def _i16(cfg, seed=0):
                  for _ in range(2))
 
 
-def _chunk(kw, seed=0):
+def _chunk(kw, seed=0, squelch=SQUELCH):
     cfg = wb.WidebandConfig(**kw)
-    params = wb.make_params(cfg, device="cpu")
+    params = wb.make_params(cfg, device="cpu", squelch_kwargs=squelch
+                            if cfg.squelch_enabled else None)
     state = wb.init_state(cfg, device="cpu")
     return cfg, params, state, _i16(cfg, seed)
 
@@ -136,8 +141,8 @@ def test_push_and_its_fetch_share_a_chunk_and_the_next_push_starts_one():
         "monitor.selected_audio"
 
 
-@pytest.mark.parametrize("kw", [PLANAR, CHANMAJOR], ids=["planar",
-                                                          "chanmajor"])
+@pytest.mark.parametrize("kw", [PLANAR, CHANMAJOR, dict(PLANAR, **GATED)],
+                         ids=["planar", "chanmajor", "planar_squelch"])
 def test_outputs_are_bit_for_bit_with_the_profiler_on(kw):
     cfg, params, state, iq = _chunk(kw, seed=3)
     off = []
@@ -202,3 +207,108 @@ def test_trace_writes_the_spans_on_its_own_clock(tmp_path):
         assert e["ts"] + e["dur"] <= ch["ts"] + ch["dur"] + 50
         assert not tail["ts"] <= e["ts"] <= tail["ts"] + tail["dur"]
     assert spans["wideband.process"]["args"]["parent"] == -1
+
+
+@pytest.mark.parametrize("kw, parent", [
+    (PLANAR, "chain.tail.unpack"), (TMAJOR, "chain.tail.unpack"),
+    (CHANMAJOR, "chain.process"), (FALLBACK, "chain.process")],
+    ids=["planar", "tmajor", "chanmajor", "fallback"])
+def test_the_gate_has_a_span_of_its_own_once_a_chunk(kw, parent):
+    cfg, params, state, iq = _chunk(dict(kw, **GATED))
+
+    def run():
+        st = state
+        for _ in range(2):
+            st, _ = wb.process_i16(cfg, params, st, iq)
+    _profiled(run)
+    sp = profiling.spans()
+    gate = [s for s in sp if s.name == "chain.tail.squelch"]
+    roots = [s.chunk for s in sp if s.parent == -1]
+    assert sorted(s.chunk for s in gate) == sorted(roots) and len(roots) == 2
+    for s in gate:
+        p = sp[s.parent]
+        assert p.name == parent
+        assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+    assert profiling.host_syncs() == {}
+
+
+def _gate_counts(gain_in, open_out):
+    shut = int(((gain_in == 0) & (open_out == 0)).sum())
+    open_ = int(((gain_in == 1) & (open_out == 1)).sum())
+    return (open_, shut, gain_in.numel() - open_ - shut)
+
+
+# (tier, an open threshold a few dB under the RSSI of its loud chunks)
+@pytest.mark.parametrize("kw, thresh_db", [(PLANAR, -70.0),
+                                           (CHANMAJOR, -54.0)],
+                         ids=["planar", "chanmajor"])
+def test_gate_counts_add_up_to_the_channels_and_follow_the_state(
+        kw, thresh_db):
+    """Each chunk's three counts are those of the gain the gate entered
+    with and the gate it decided (the state before and after the chunk),
+    and add up to the channels."""
+    cfg, params, state, _ = _chunk(dict(kw, **GATED),
+                                   squelch=dict(SQUELCH, thresh_db=thresh_db))
+    want, chunks = [], []
+
+    def run():
+        st = state
+        # quiet, quiet, loud, loud: gates shut (moving), stay shut, open
+        # (moving), stay open
+        for seed, scale in enumerate((100, 100, 1, 1)):
+            iq = tuple((x // scale).astype(np.int16)
+                       for x in _i16(cfg, seed))
+            before = st.chain.squelch
+            st, _ = wb.process_i16(cfg, params, st, iq)
+            want.append(_gate_counts(before.gain, st.chain.squelch.open_))
+            chunks.append(profiling.spans()[-1].chunk)
+    _profiled(run)
+    got = profiling.gates()
+    assert [got[c] for c in chunks] == want
+    assert all(sum(n) == cfg.n_chan for n in want)
+    n = cfg.n_chan
+    assert want == [(0, 0, n), (0, n, 0), (0, 0, n), (n, 0, 0)]
+    profiling.clear_spans()
+    assert profiling.gates() == {}
+
+
+def _on_a_card():
+    """A stand-in for a tensor on a card: this machine has none."""
+    class OnACard:
+        device = torch.device("cuda", 0)
+    return OnACard()
+
+
+def test_nothing_is_recorded_or_marked_off_a_profiler(monkeypatch):
+    marks = []
+    monkeypatch.setattr(profiling, "_mark", marks.append)
+    cfg, params, state, iq = _chunk(dict(PLANAR, **GATED))
+    wb.process_i16(cfg, params, state, iq)
+    with profiling.device_span("chain.tail.squelch", _on_a_card()):
+        pass
+    profiling.count_gate(torch.ones(4), torch.ones(4))
+    assert profiling.spans() == [] and profiling.host_syncs() == {}
+    assert profiling.gates() == {} and marks == []
+
+
+def test_a_device_span_marks_its_ends_on_a_card_alone(monkeypatch):
+    """Under a profiler a device span on a card launches a marker as it
+    opens and as it closes, inside the span; on the CPU none. (Stand-ins
+    for the tensor and the launch: this machine has no card.)"""
+    marks = []
+    monkeypatch.setattr(profiling, "_mark", lambda d: marks.append(
+        (d, len(profiling.spans()), profiling.spans()[-1].end_ns)))
+    cuda = torch.device("cuda", 0)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.span("chain.tail.unpack"):
+            with profiling.device_span("chain.tail.squelch", _on_a_card()):
+                pass
+            with profiling.device_span("chain.tail.squelch", torch.ones(1)):
+                pass
+    sp = profiling.spans()
+    assert [s.name for s in sp] == ["chain.tail.unpack",
+                                    "chain.tail.squelch",
+                                    "chain.tail.squelch"]
+    assert sp[1].parent == sp[2].parent == 0
+    # both marks while the first gate span was open
+    assert marks == [(cuda, 2, None), (cuda, 2, None)]
