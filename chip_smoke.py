@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
 
 Phases, each printed as it runs; any failure exits non-zero:
   1. card identity (torch / CUDA versions, nvidia-smi name and power limit);
-  2. build the five kernels from supersdr_tpu_torch/csrc with nvcc (one
+  2. build the kernels from supersdr_tpu_torch/csrc with nvcc (one
      process a source, in parallel): the seconds each source took, every
      kernel variant's registers, stack and spills, and the tensor-core and
      asynchronous-copy instructions in the built library; and the port's
@@ -48,7 +48,12 @@ Phases, each printed as it runs; any failure exits non-zero:
   5. row alignment on both main paths: two AM carriers come out as the two
      loudest RSSI rows;
   6. AGC hang and squelch on the planar HEADLINE path (launch counts
-     unchanged), and the chain's own entry points: `chain.process` on 2560
+     unchanged, and one squelch-gate launch a chunk with the squelch); the
+     squelch gate kernel against its plain version on HEADLINE's audio
+     [64512, 2560] (float32, float16, bfloat16; the squelch cell's mix of
+     settled-open, settled-shut and moving channels): equal up to the sign
+     of zero, its ms beside its bound (~0.19 ms at float32); and the
+     chain's own entry points: `chain.process` on 2560
      receivers with the tail kernel, `chain.run_offline` for one 12 kHz and
      one 20.25 kHz receiver, and a MID chan-major run through the fused
      channelizer and the tail kernel, each held against the same call on
@@ -163,6 +168,7 @@ channelizer's and the FIR tail's also their times at the mesh's shapes.
 The non-FIR tail has two lines: `chain_tail_am_c` (the complex passband,
 chain-major audio: timed at CHANMAJOR and on the two batches) and
 `chain_tail_am` (time-major planes: timed at the 33-tap time-major branch).
+The squelch gate's line carries its float16 and bfloat16 times too.
 The last lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. It exits non-zero, printing no result,
 when no CUDA device is present. It imports nothing of JAX.
@@ -831,10 +837,12 @@ def _wrappers() -> dict:
     from supersdr_tpu_torch.ops.cuda import channelize_fused as cf
     from supersdr_tpu_torch.ops.cuda import halo
     from supersdr_tpu_torch.ops.cuda import pfb_fold as pf
+    from supersdr_tpu_torch.ops.cuda import squelch_gate as sg
     return {"channelize_fused": cf.channelize_fused_raw3,
             "chain_tail": ct.chain_tail_fir, "pfb_fold": pf.pfb_fold,
             "chain_tail_am": ct.chain_tail_am,
-            "chain_tail_am_c": ct.chain_tail_am_c, "halo": halo.left_halo}
+            "chain_tail_am_c": ct.chain_tail_am_c, "halo": halo.left_halo,
+            "squelch_gate": sg.squelch_gate_tmajor}
 
 
 def _reset_counts() -> None:
@@ -996,7 +1004,8 @@ def phase_chanmajor(shape: dict, device, seed: int = 2) -> dict:
           f"{len(chunks)} chunks; audio {tuple(outs[0].shape)} "
           f"finite={finite} mean|a|={mean_abs}", flush=True)
     want = {"channelize_fused": 0, "chain_tail": 0, "pfb_fold": len(chunks),
-            "chain_tail_am": 0, "chain_tail_am_c": len(chunks), "halo": 0}
+            "chain_tail_am": 0, "chain_tail_am_c": len(chunks), "halo": 0,
+            "squelch_gate": 0}
     if launches != want or not shape_ok or not finite or min(mean_abs) <= 0:
         raise AssertionError("chan-major main path failed")
     return {"launches": launches, "cfg": cfg, "params": params,
@@ -1095,10 +1104,12 @@ def phase_rows(shape: dict, device, tier: dict | None = None,
         raise AssertionError("row alignment failed")
 
 
-def phase_controls(shape: dict, device, seed: int = 5) -> None:
+def phase_controls(shape: dict, device, seed: int = 5) -> dict:
     """AGC hang and squelch on the planar HEADLINE path (fast profile): one
     run each, one channelizer and one FIR-tail launch a chunk as without
-    them; the squelch must close on a quiet chunk after a loud one."""
+    them, and with the squelch one gate launch a chunk; the squelch must
+    close on a quiet chunk after a loud one. Returns the squelch run's
+    launches."""
     from supersdr_tpu_torch.ops import cx
     from supersdr_tpu_torch.runtime import wideband as wb
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -1124,10 +1135,145 @@ def phase_controls(shape: dict, device, seed: int = 5) -> None:
               flush=True)
         want = {"channelize_fused": len(chunks), "chain_tail": len(chunks),
                 "pfb_fold": 0, "chain_tail_am": 0, "chain_tail_am_c": 0,
-                "halo": 0}
+                "halo": 0, "squelch_gate": len(chunks) * (label == "squelch")}
         if launches != want or not finite \
                 or (label == "squelch" and opened != 0.0):
             raise AssertionError(f"planar {label} failed")
+    return {"launches": launches}
+
+
+# what the squelch cell's gates meet a HEADLINE chunk (keyed carriers):
+# channels settled open, settled shut; the rest of the 2560 move
+SQUELCH_MIX = (159, 2351)
+
+
+def _squelch_case(C: int, n: int, gen, *, device, dtype=torch.float32,
+                  with_order: bool = True):
+    """The squelch gate on time-major audio [n, C] of `dtype` with the
+    squelch cell's mix of channels (SQUELCH_MIX scaled to C; the moving
+    ones opening from 0, closing from 1 and mid-ramp), its thresholds and
+    ramp at the audio rate, the state in bin order behind a random row
+    order (no order with `with_order` False). Returns (kernel, plain, work,
+    src, (settled open, settled shut, moving)): kernel() gates `work` in
+    place (copy `src` into it for a fresh call), plain() gates `src` into a
+    new tensor; both return (audio, open', gain')."""
+    from supersdr_tpu_torch.ops import squelch as sq
+    from supersdr_tpu_torch.ops.cuda import squelch_gate as sg
+    sp = sq.make_squelch(enabled=True, thresh_db=-69.0, hyst_db=6.0,
+                         ramp_samples=240, device=device)
+    params = sp._replace(ramp=sp.ramp / 4.0)
+    n_open = round(SQUELCH_MIX[0] * C / 2560)
+    n_shut = round(SQUELCH_MIX[1] * C / 2560)
+    cls = torch.randperm(C, generator=gen, device=device)
+    kind = torch.full((C,), 2, device=device)          # moving
+    kind[cls[:n_open]] = 0
+    kind[cls[n_open:n_open + n_shut]] = 1
+    third = torch.randint(0, 3, (C,), generator=gen, device=device)
+    rnd = torch.rand(C, generator=gen, device=device)
+    # settled open: open, gain 1, loud; settled shut: shut, gain 0, quiet;
+    # moving: opening (shut, gain 0, loud), closing (open, gain 1, quiet)
+    # or mid-ramp (open, a gain inside (0, 1), between the thresholds)
+    opening, closing, mid = (kind == 2) & (third == 0), \
+        (kind == 2) & (third == 1), (kind == 2) & (third == 2)
+    open_row = ((kind == 0) | closing | mid).float()
+    gain_row = torch.where(mid, rnd, open_row)
+    rssi = torch.where((kind == 0) | opening,
+                       torch.full_like(rnd, -60.0),
+                       torch.where(mid, torch.full_like(rnd, -72.0),
+                                   torch.full_like(rnd, -90.0)))
+    order = torch.randperm(C, generator=gen, device=device) \
+        if with_order else None
+    state = sq.SquelchState(*(
+        v if order is None else torch.empty_like(v).index_put_((order,), v)
+        for v in (open_row, gain_row)))
+    src = (torch.randn(n, C, generator=gen, device=device) * 0.05).to(dtype)
+    work = src.clone()
+
+    def kernel():
+        st, out = sg.squelch_gate_tmajor(params, state, work, rssi, order)
+        return out, st.open_, st.gain
+
+    def plain():
+        st, out = sg.squelch_gate_tmajor_plain(params, state, src, rssi,
+                                               order)
+        return out, st.open_, st.gain
+    counts = (n_open, n_shut, C - n_open - n_shut)
+    return kernel, plain, work, src, counts
+
+
+def squelch_bound(counts: tuple, frames: int, esz: int) -> float:
+    """The gate's least ms at its boundary, as the squelch cell counts it
+    (`sdrbench/roofline/squelch.py`), on audio of `esz` bytes a sample."""
+    from sdrbench import roofline
+    from sdrbench.roofline import squelch
+    with open("sdrbench/configs/hf2560_am_squelch.json") as f:
+        conf = json.load(f)
+    conf["precision"]["audio"] = {4: "f32", 2: "bf16"}[esz]
+    return roofline.least_s(*squelch.counts(conf, frames, *counts)) * 1e3
+
+
+def phase_squelch(device, err: dict, iters: int = 20, seed: int = 26
+                  ) -> dict:
+    """The squelch gate kernel against its plain version at HEADLINE's
+    audio [64512, 2560] on float32, float16 and bfloat16 audio, the squelch
+    cell's mix of channels: audio and state equal up to the sign of zero
+    (a shut channel's −0.0), one launch a call; ms beside the plain
+    version's and the bound."""
+    from supersdr_tpu_torch.ops.cuda import squelch_gate as sg
+    from supersdr_tpu_torch.runtime import wideband as wb
+    cfg = wb.WidebandConfig(**HEADLINE, **wb.PROFILES["fast"])
+    n, C = cfg.chunk_per_chan * cfg.chain_cfg.upsample, cfg.n_chan
+    gen = torch.Generator(device=device).manual_seed(seed)
+    times = {}
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        name = str(dtype)[6:]
+        kernel, plain, work, src, counts = _squelch_case(
+            C, n, gen, device=device, dtype=dtype)
+        ref = plain()
+        before = sg.squelch_gate_tmajor.launches
+        got = kernel()
+        _sync(device)
+        launched = sg.squelch_gate_tmajor.launches - before
+        same = [bool(torch.equal(r, g)) for r, g in zip(ref, got)]
+        diff = int((ref[0] != got[0]).sum())
+        signs = int(((ref[0] == 0) & (torch.signbit(ref[0])
+                                      != torch.signbit(got[0]))).sum())
+        mx = max(float((r.float() - g.float()).abs().max())
+                 for r, g in zip(ref, got))
+        err["squelch_gate"] = max(err.get("squelch_gate", 0.0), mx)
+        ms = cuda_ms(kernel, iters)
+        plain_ms = cuda_ms(plain, 3)
+        bound = squelch_bound(counts, cfg.chunk_per_chan, src.element_size())
+        times[f"squelch_gate_{name}"] = (ms, plain_ms, bound)
+        print(f"kernel squelch_gate {name} [{n}, {C}] (settled open / shut "
+              f"/ moving {counts}): equal to plain up to the sign of zero "
+              f"{same} (audio, open, gain), {diff} elements differ, {signs} "
+              f"zeros of the other sign, max_abs_err {mx:.3e}; launches "
+              f"{launched}; {ms:.4f} ms against {bound:.4f} ms (bytes; "
+              f"{100 * bound / ms:.1f} %), plain "
+              f"{plain_ms:.3f} ms", flush=True)
+        if not all(same) or diff or launched != 1:
+            raise AssertionError(f"squelch_gate {name} disagrees with its "
+                                 f"plain version")
+        del kernel, plain, work, src, ref, got
+        torch.cuda.empty_cache()
+    # rows the kernel reads one lane at a time (C not a multiple of its
+    # 16-byte vector), and no row order
+    for C_small, with_order in ((37, True), (40, False), (2560, False)):
+        for dtype in (torch.float32, torch.float16, torch.bfloat16):
+            kernel, plain, *_ = _squelch_case(
+                C_small, 4000, gen, device=device, dtype=dtype,
+                with_order=with_order)
+            same = [bool(torch.equal(r, g)) for r, g in zip(plain(),
+                                                           kernel())]
+            print(f"kernel squelch_gate {str(dtype)[6:]} [4000, {C_small}] "
+                  f"order {with_order}: equal to plain up to the sign of "
+                  f"zero {same}", flush=True)
+            if not all(same):
+                raise AssertionError("squelch_gate disagrees with its plain "
+                                     "version")
+    times["squelch_gate"] = times["squelch_gate_float32"][:2]
+    return times
 
 
 def _close_to_cpu(label: str, got, ref, tol: float) -> None:
@@ -3679,7 +3825,7 @@ def _summary(name: str, source: str, replaces: str, paths: dict, err: dict,
              times: tuple, bound: tuple, library_ms=None, **extra) -> dict:
     """One kernel's line: `launches` sums its launches over the main paths
     (each driven from a zeroed count), `paths` says where they were."""
-    launches = {k: v["launches"][name] for k, v in paths.items()}
+    launches = {k: v["launches"].get(name, 0) for k, v in paths.items()}
     if sum(launches.values()) == 0:
         raise AssertionError(f"no main path launched {name}")
     return {"name": name, "route": "cuda",
@@ -3740,7 +3886,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_rows(HEADLINE, dev)
     phase_rows(HEADLINE, dev, CHANMAJOR)
-    phase_controls(HEADLINE, dev)
+    controls = phase_controls(HEADLINE, dev)
+    times.update(phase_squelch(dev, err))
     phase_chain(dev)
     with tempfile.TemporaryDirectory() as tmp:
         variants = phase_variants(dev, tmp)
@@ -3774,7 +3921,7 @@ def main() -> int:
              "monitor_i16": monitor["monitor_i16"],
              "monitor_mesh": monitor["monitor_mesh"], "live": live,
              "checkpoint": checkpoint, "trace": traced, "bench": bench_run,
-             "variants": variants,
+             "variants": variants, "controls_squelch": controls,
              **procs["paths"]}
     bounds = kernel_bounds(times["halo_bound"])
     kernels = [
@@ -3813,6 +3960,15 @@ def main() -> int:
                  **{f"{k}_us": dict(zip(("host", "card", "barrier",
                                          "kernel"), v))
                     for k, v in times.items() if k.startswith("halo_procs")}),
+        {**_summary("squelch_gate", "squelch_gate.cu", "", paths, err,
+                    times["squelch_gate"],
+                    (times["squelch_gate_float32"][2], "bytes"),
+                    **{f"{k}_{v}": times[f"squelch_gate_{k}"][i]
+                       for k in ("float16", "bfloat16")
+                       for i, v in enumerate(("ms", "plain_ms",
+                                              "bound_ms"))}),
+         "replaces": "none: supersdr_tpu/ops/squelch.py apply_squelch is "
+                     "jnp code, no pallas_call"},
     ]
     print(f"procs (ms a SHARDED call / MESH chunk over the ranks against "
           f"one process; halo us a call from the host, on the card, the "

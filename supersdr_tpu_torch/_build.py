@@ -63,6 +63,8 @@ SIGNATURES = {
     "peer_ipc_handle": [_I, _P, _P],
     "peer_ipc_open": [_I, _P, _P],
     "peer_ipc_close": [_I, _P],
+    "squelch_gate": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _P],
 }
 
 

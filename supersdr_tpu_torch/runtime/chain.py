@@ -31,10 +31,12 @@ children: `chain.tail.pack` (the kernel's inputs: the state rows, the
 history, the parameter vector), `chain.tail.launch` (the kernel's call) and
 `chain.tail.unpack` (the RSSI in dB, the squelch, the state from the rows).
 Every squelch gate, on any tail, runs in a span `chain.tail.squelch` of
-its own (`profiling.device_span`: its device work marked in the stream),
-with the gate's state permuted into and out of the planar row order where
-there is one; after it, `profiling.count_gate` keeps what the gate met
-(the gains in, the gates out) for `profiling.gates()` to count.
+its own (`profiling.device_span`: its device work marked in the stream):
+on the time-major tails one `ops/cuda/squelch_gate` launch, in place, which
+reads the state at the planar row order's bins and writes the new state
+there; on the chain-major tails the plain gate (`_gate`). After it,
+`profiling.count_gate` keeps what the gate met (the gains in, the gates
+out, both in bin order) for `profiling.gates()` to count.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ from supersdr_tpu_torch.ops import (fir_matmul, firdesign, mixer,
                                     overlap_save, passband, resample)
 from supersdr_tpu_torch.ops import smeter
 from supersdr_tpu_torch.ops import squelch as squelch_ops
-from supersdr_tpu_torch.ops.cuda import chain_tail
+from supersdr_tpu_torch.ops.cuda import chain_tail, squelch_gate
 from supersdr_tpu_torch.utils import held, profiling
 
 
@@ -540,15 +542,10 @@ def process_tail_tmajor(cfg: ChainConfig, params: ChainParams,
             sq_state = state.squelch
             if cfg.squelch_enabled:
                 with profiling.device_span("chain.tail.squelch", audioT):
-                    sq_in = state.squelch if order is None else \
-                        squelch_ops.SquelchState(
-                            *(v[order] for v in state.squelch))
-                    gated, audioT = squelch_ops.apply_squelch_tmajor(
-                        _squelch_tail(params, cfg), sq_in, audioT,
-                        rssi[:, 0])
-                    sq_state = gated if inv is None else \
-                        squelch_ops.SquelchState(*(v[inv] for v in gated))
-                profiling.count_gate(sq_in.gain, gated.open_)
+                    sq_state, audioT = squelch_gate.squelch_gate_tmajor(
+                        _squelch_tail(params, cfg), state.squelch, audioT,
+                        rssi[:, 0], order)
+                profiling.count_gate(state.squelch.gain, sq_state.open_)
             dstate, astate, icarry = _unpack_rows(cfg, state, st2, inv)
         new_state = ChainState(phase=phase, os_carry=os_carry, demod=dstate,
                                agc=astate, interp_carry=icarry,

@@ -19,7 +19,9 @@ FIR tail on the channelizer's planes), am (the non-FIR tail on a
 chain-major complex [2560, 16128] passband, chain-major audio), am_time
 (the same tail on time-major planes [16128, 2560] with time-major audio
 and the power row, the 33-tap branch's peak segment), am_batch (the tail
-as `chain.process` runs it on 128 and on 2560 receivers × 2048 samples);
+as `chain.process` runs it on 128 and on 2560 receivers × 2048 samples),
+squelch (the squelch gate in place on HEADLINE's time-major audio
+[64512, 2560], float32 and bfloat16, the squelch cell's mix of channels);
 and, by name only, five of
 `chip_smoke.py`'s phases whole, end to end: sharded (SHARDED and the 2 ×
 4 grid, sharded and serial ms a call), mesh (HEADLINE through the
@@ -45,7 +47,7 @@ import subprocess
 import sys
 
 ALL = ("chan_fast", "chan_quality", "tail_fast", "tail_quality", "am",
-       "am_time", "am_batch")
+       "am_time", "am_batch", "squelch")
 PHASES = ("sharded", "mesh", "chanmajor", "main", "bench")
 
 
@@ -113,6 +115,13 @@ def time_tree(what: tuple, check: bool) -> None:
                             dtype=torch.complex64) * 0.05
             run(f"am_batch{n_rx}", *cs._am_case(
                 n_rx, ccfg.chunk, gen, device=dev, y=y, n_taps=ccfg.n_taps))
+    if "squelch" in what:
+        for dtype in (torch.float32, torch.bfloat16):
+            kernel, plain, *_ = cs._squelch_case(2560, 16128 * 4, gen,
+                                                 device=dev, dtype=dtype)
+            run(f"squelch_{str(dtype)[6:]}", kernel, plain)
+            del kernel, plain
+            torch.cuda.empty_cache()
     if "sharded" in what:
         cs.phase_sharded(dev)
     if "mesh" in what:

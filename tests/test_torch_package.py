@@ -31,7 +31,8 @@ FIXTURE = str(REPO / "tests" / "fixtures" / "kiwi_am_offair_12k.wav")
     "supersdr_tpu_torch.ops.cuda.pfb_fold",
     "supersdr_tpu_torch.runtime.chain", "supersdr_tpu_torch.ops.scans",
     "supersdr_tpu_torch.ops.squelch", "supersdr_tpu_torch.ops.resample",
-    "supersdr_tpu_torch.ops.cuda.halo", "supersdr_tpu_torch.parallel",
+    "supersdr_tpu_torch.ops.cuda.halo",
+    "supersdr_tpu_torch.ops.cuda.squelch_gate", "supersdr_tpu_torch.parallel",
     "supersdr_tpu_torch.parallel.mesh",
     "supersdr_tpu_torch.parallel.collectives",
     "supersdr_tpu_torch.parallel.sharded_chain",
@@ -120,7 +121,8 @@ def test_build_targets_sm90a_into_ignored_dir():
     assert rel in ignored
     assert {p.name for p in _build.sources()} == {"channelize_fused.cu",
                                                  "chain_tail.cu",
-                                                 "pfb_fold.cu", "halo.cu"}
+                                                 "pfb_fold.cu", "halo.cu",
+                                                 "squelch_gate.cu"}
     # the source hash names the library, so an edited source rebuilds
     assert _build.source_hash() in lib.name
 
