@@ -40,8 +40,8 @@ Phases, each printed as it runs; any failure exits non-zero:
      also on USB, NBFM and AM with the hang), what every channelizer
      instance launches at HEADLINE and at the mesh's (20, 128) on 8 shards
      (registers, local bytes, shared bytes, grid, blocks an SM, frames a
-     block, its tables' bytes and what a block reads of them out of L2,
-     beside the earlier folded stage-A table), what each tail entry launches
+     block, its tables' bytes and what a block reads of them out of L2),
+     what each tail entry launches
      (registers, stack, shared bytes, grid, blocks an SM, cluster dims and
      the clusters resident at once; every FIR-tail instance), and where the
      planar and the CHANMAJOR device time goes, with the card's idle share;
@@ -162,9 +162,12 @@ Phases, each printed as it runs; any failure exits non-zero:
      the card's idle share in the bench's own loop, profiled.
 Each kernel's line in the JSON summary carries its launches on the main
 paths, its time, its plain version's, its bound on this card (bytes over
-3.35 TB/s against operations over the peak rate of their type) and, where
-one PyTorch call computes the same function, that call's time; the
-channelizer's and the FIR tail's also their times at the mesh's shapes.
+3.35 TB/s against operations over the peak rate of their type;
+`kernel_bounds`: the channelizer and the FIR tail as the cells count them,
+the channelizer on the int16 input the cells feed) and, where one PyTorch
+call computes the same function, that call's time; the channelizer's and
+the FIR tail's also their quality tier's times and their times at the
+mesh's shapes.
 The non-FIR tail has two lines: `chain_tail_am_c` (the complex passband,
 chain-major audio: timed at CHANMAJOR and on the two batches) and
 `chain_tail_am` (time-major planes: timed at the 33-tap time-major branch).
@@ -1201,13 +1204,30 @@ def _squelch_case(C: int, n: int, gen, *, device, dtype=torch.float32,
     return kernel, plain, work, src, counts
 
 
+def cell_conf(name: str) -> dict:
+    """A cell's configuration (`sdrbench/configs/<name>.json`)."""
+    with open(f"sdrbench/configs/{name}.json") as f:
+        return json.load(f)
+
+
+def cell_bound(kernel: str, conf: dict, frames: int) -> tuple[float, str]:
+    """A kernel's least ms on a chunk of `frames` frames as the cells count
+    it (`sdrbench/roofline/<kernel>.py` on the configuration `conf`), and
+    what bounds it: "bytes" or "operations"."""
+    from sdrbench import roofline
+    n_bytes, flops = roofline.kernel(kernel).counts(conf, frames)
+    t_bytes, t_ops = roofline.least_s(n_bytes, 0.0), roofline.least_s(0.0,
+                                                                      flops)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def squelch_bound(counts: tuple, frames: int, esz: int) -> float:
     """The gate's least ms at its boundary, as the squelch cell counts it
     (`sdrbench/roofline/squelch.py`), on audio of `esz` bytes a sample."""
     from sdrbench import roofline
     from sdrbench.roofline import squelch
-    with open("sdrbench/configs/hf2560_am_squelch.json") as f:
-        conf = json.load(f)
+    conf = cell_conf("hf2560_am_squelch")
     conf["precision"]["audio"] = {4: "f32", 2: "bf16"}[esz]
     return roofline.least_s(*squelch.counts(conf, frames, *counts)) * 1e3
 
@@ -1603,8 +1623,7 @@ def _chan_launch_info(cfg) -> None:
     (n1, n2) and the mesh's on MESH_D shards), from `launch_info`:
     registers and local bytes a thread, shared bytes, grid, blocks an SM,
     frames a block; and the bytes of its tables and what a block reads of
-    them out of L2, beside what the earlier design, with the folded
-    stage-A table, read a block."""
+    them out of L2."""
     from supersdr_tpu_torch.ops.cuda import channelize_fused as cf
     from supersdr_tpu_torch.parallel import sharded_wideband as sw
     from supersdr_tpu_torch.runtime import wideband as wb
@@ -1632,8 +1651,7 @@ def _chan_launch_info(cfg) -> None:
               f"block, {info['blocks']} blocks of {info['threads']} threads, "
               f"{info['per_sm']} blocks an SM, {info['frames']} frames a "
               f"block; tables {info['table_bytes']} bytes, "
-              f"{info['l2_table_bytes']} bytes a block out of L2 (with the "
-              f"folded table: {info['l2_table_bytes_folded']})", flush=True)
+              f"{info['l2_table_bytes']} bytes a block out of L2", flush=True)
 
 
 def phase_am_batch(device, err: dict, iters: int = 20,
@@ -3761,11 +3779,16 @@ def fold_library(run: dict, iters: int = 5, seed: int = 15) -> float:
 
 def kernel_bounds(halo_bound: tuple) -> dict:
     """Each kernel's bound at the shape it is timed at (HEADLINE: 2560
-    channels × 16128 frames; the fast tier for the channelizer and the FIR
-    tail, and "chain_tail_quality" for the FIR tail's quality tier; "…_mesh":
-    at the mesh's shapes on 8 shards, (20, 128) with 24 planes and the FIR
-    tail on 3072 rows), from the shapes alone."""
-    from supersdr_tpu_torch.ops import channelizer
+    channels × 16128 frames), as (ms, what bounds it).
+
+    The channelizer ("channelize_fused", "channelize_fused_quality": int16
+    input, which the cells feed) and the FIR tail ("chain_tail",
+    "chain_tail_quality") are bounded as the cells bound them
+    (`cell_bound`, on the fast and quality cells' configuration files). The
+    rest no cell counts yet, so they keep this file's own formulas
+    (`bound_ms`: the card's float32 and bf16 peaks): the mesh's shapes on
+    8 shards ("…_mesh": (20, 128) with 24 planes, and the FIR tail on 3072
+    rows), the fold kernel, the non-FIR tails and the halo kernel."""
     from supersdr_tpu_torch.parallel import sharded_wideband as sw
     from supersdr_tpu_torch.runtime import wideband as wb
     cfg = wb.WidebandConfig(**HEADLINE, **wb.PROFILES["fast"])
@@ -3784,27 +3807,27 @@ def kernel_bounds(halo_bound: tuple) -> dict:
             + 8 * n1 * n1 * n2 + 8 * n2 * n2 + 2 * 2 * nf * n1_out * n2,
             {"fp32": samples * (4 * K + 8 * n1), "bf16": samples * 8 * n2})
 
-    def tail(C, quality=False):
-        # raw planes (bf16; quality: float32) and f32 history in, f32 audio
-        # out; real taps on bf16 operands (quality: split in two pieces,
-        # three passes), the rest in float32
-        n, x_bytes = nf * C, 4 if quality else 2
+    def tail(C):
+        # bf16 raw planes and f32 history in, f32 audio out; real taps on
+        # bf16 operands, the rest in float32
+        n = nf * C
         return bound_ms(
-            2 * x_bytes * n + 2 * 4 * ov * C + (4 + per) * C * 4 * 2
-            + 4 * n * L,
-            {"bf16": (3 if quality else 1) * n * 4 * cfg.n_taps,
-             "fp32": n * (2 * per * L + 40)})
+            2 * 2 * n + 2 * 4 * ov * C + (4 + per) * C * 4 * 2 + 4 * n * L,
+            {"bf16": n * 4 * cfg.n_taps, "fp32": n * (2 * per * L + 40)})
+
     def am(C, n):
         # complex64 passband in, float32 audio out, the state rows in and
         # out; the resampler's and the scans' operations in float32
         return bound_ms(8 * n * C + (4 + per) * C * 4 * 2 + 4 * n * C * L,
                         {"fp32": n * C * (2 * per * L + 40)})
-    n1, n2 = channelizer._pick_factors(M)
     m1, m2, m1_pad = sw.plan_mesh(cfg, MESH_D).factors
+    fast, quality = cell_conf("hf2560_am_fast"), cell_conf("hf2560_am_quality")
     return {
-        "channelize_fused": chan(n1, n2, n1, 1),
-        "chain_tail": tail(M),
-        "chain_tail_quality": tail(M, quality=True),
+        "channelize_fused": cell_bound("channelize_fused", fast, nf),
+        "channelize_fused_quality": cell_bound("channelize_fused", quality,
+                                               nf),
+        "chain_tail": cell_bound("chain_tail_fir", fast, nf),
+        "chain_tail_quality": cell_bound("chain_tail_fir", quality, nf),
         "channelize_fused_mesh": chan(m1, m2, m1_pad, MESH_D),
         "chain_tail_mesh": tail(m1_pad * m2),
         "pfb_fold": bound_ms(
@@ -3927,7 +3950,12 @@ def main() -> int:
     kernels = [
         _summary("channelize_fused", "channelize_fused.cu",
                  "channelize_fused.py:61", paths, err,
-                 times["channelize_fused_fast"], bounds["channelize_fused"],
+                 times["channelize_fused_i16_fast"],
+                 bounds["channelize_fused"],
+                 f32_in_ms=times["channelize_fused_fast"][0],
+                 quality_ms=times["channelize_fused_i16_quality"][0],
+                 quality_plain_ms=times["channelize_fused_i16_quality"][1],
+                 quality_bound_ms=bounds["channelize_fused_quality"][0],
                  mesh_ms=times["mesh_channelize_fused_fast"][0],
                  mesh_plain_ms=times["mesh_channelize_fused_fast"][1],
                  mesh_bound_ms=bounds["channelize_fused_mesh"][0]),
@@ -3978,9 +4006,12 @@ def main() -> int:
         print(f"bound {k['name']}: {k['ms']:.4f} ms against "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}), launches "
               f"{k['paths']}", flush=True)
-    q_ms, q_bound = times["chain_tail_quality"][0], bounds["chain_tail_quality"]
-    print(f"bound chain_tail quality: {q_ms:.4f} ms against "
-          f"{q_bound[0]:.4f} ms ({q_bound[1]})", flush=True)
+    for name, timed in (("channelize_fused", "channelize_fused_i16"),
+                        ("chain_tail", "chain_tail")):
+        q_ms, q_bound = (times[f"{timed}_quality"][0],
+                         bounds[f"{name}_quality"])
+        print(f"bound {name} quality: {q_ms:.4f} ms against "
+              f"{q_bound[0]:.4f} ms ({q_bound[1]})", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

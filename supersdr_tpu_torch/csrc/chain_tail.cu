@@ -8,9 +8,9 @@
 //
 // Replaces: supersdr_tpu/ops/pallas/chain_tail.py::_kernel_fir (FIR entry;
 // chain.process_tail_tmajor(fir_x3=…) on the planar wideband path) and
-// ::_kernel (chain_tail_am without `fir`; chain._process_tail_pallas, the
-// chain-major wideband tier and any batch of ≥ 128 receivers: the
-// chain-major entry; chain.process_tail_tmajor(yT=…): the 8-channel entry),
+// ::_kernel (chain_tail_am without `fir`; _process_tail_pallas in
+// runtime/chain.py, the chain-major wideband tier and any batch of ≥ 128
+// receivers: the chain-major entry; chain.process_tail_tmajor(yT=…): the 8-channel entry),
 // all with _tail_core (and its _atan2, _doubling_linear, _doubling_max
 // helpers).
 //
@@ -140,8 +140,7 @@
 //  * Not kept: whole 128-byte lines through the cluster. A warp a channel
 //    in the resampler, the four blocks' rows staged in shared memory and
 //    stored a quarter each with 16-byte loads over distributed shared
-//    memory (tools/tail_exchange.patch, now on the non-FIR entry only: its
-//    part in the FIR entry went with the kernel it edited) was correct and
+//    memory (PERF.md §6 names the commit that holds it) was correct and
 //    slower: FIR fast 1.31-1.34 ms, quality 2.12-2.13, the non-FIR entry
 //    1.13-1.16. Its
 //    staging alone (no distributed shared memory, block barriers) costs

@@ -90,11 +90,12 @@
 //    and the shard strides are run-time values (no template instances);
 //    a block adds its shard's offsets where it addresses memory.
 //
-// Measured and not kept (PERF.md §6): persistent blocks of 512 threads
-// holding the taps and the twiddle row in shared memory across tiles
-// (tools/chan_persistent.patch: at 128 registers a thread they spilled, or
-// read Y twice as often, and ran 1.16-2.4 ms), an input ring 3-4 tiles
-// deep, B fragments two k-steps ahead, and D = 1 as its own instance.
+// Measured and not kept (PERF.md §6, which names the commit that holds the
+// first): persistent blocks of 512 threads holding the taps and the
+// twiddle row in shared memory across tiles (at 128 registers a thread
+// they spilled, or read Y twice as often, and ran 1.16-2.4 ms), an input
+// ring 3-4 tiles deep, B fragments two k-steps ahead, and D = 1 as its own
+// instance.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

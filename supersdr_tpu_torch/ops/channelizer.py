@@ -290,8 +290,8 @@ def _stageb_split_tables(n2: int, levels: int = 1
                          ) -> tuple[np.ndarray, np.ndarray, tuple]:
     """Tables of the reference's L-level radix-2 DIF split of stage B:
     the n2/2^L-point DFT matrix and, per level, the twiddle row pair
-    (tw_r[1, w], tw_i[1, w]). The port runs stage B unsplit (see
-    `runtime.wideband._split_levels_for`); these tables and
+    (tw_r[1, w], tw_i[1, w]). The port's channelizer runs stage B
+    unsplit (`ops/cuda/channelize_fused.py`); these tables and
     `stageb_col_to_k2` read the reference's split output."""
     nL = n2 >> levels
     jk = np.outer(np.arange(nL), np.arange(nL))

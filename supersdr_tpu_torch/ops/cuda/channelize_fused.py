@@ -9,11 +9,11 @@ CUDA tensors; both count their launches in
 `channelize_fused_raw3.launches` (one kernel, one count).
 
 Output, "raw3": the raw planar planes [n1, nf, n2], planar channel
-k1·n2 + k2 = PFB bin k2·n1 + k1. "time": float32 planes [nf, M] in bin
-order m = k2·n1 + k1, written by the same kernel (a second store
-path). The port runs stage B unsplit, so the column order is the
-identity (the reference's radix-2 stage-B split exists to halve TPU MXU
-work; `runtime.wideband._split_levels_for`).
+k1·n2 + k2 = PFB bin k2·n1 + k1 (`planar_order`). "time": float32 planes
+[nf, M] in bin order m = k2·n1 + k1, written by the same kernel (a second
+store path). The kernel runs stage B unsplit, so the column of a plane is
+k2 (the reference's radix-2 stage-B split, which halves TPU MXU work and
+reorders the columns, has no counterpart here).
 
 The mesh form (`parallel/sharded_wideband.py`): a leading shard axis on x
 and on the carry, D time shards each with its own history head, one launch
@@ -259,27 +259,29 @@ def _launch(g2, At_r, At_i, c2, head_r, head_i, x_r, x_i, *, n1, n2,
     return out_r, out_i
 
 
+def planar_order(n_chan: int, n1: int, n2: int) -> np.ndarray:
+    """order[c] = the PFB bin of planar channel c of the "raw3" planes:
+    channel c = k1·n2 + k2 (plane k1, column k2) holds bin k2·n1 + k1. On
+    the mesh's padded planes the real channels are the first n_chan."""
+    c = np.arange(n_chan)
+    return c % n2 * n1 + c // n2
+
+
 LAUNCH_KEYS = ("smem", "blocks", "threads", "per_sm", "regs", "local",
                "frames")
 
 
-def l2_table_bytes(M: int, K: int, n1: int, n2: int, T: int, bf16_b: bool,
-                   folded: bool = False) -> int:
+def l2_table_bytes(M: int, K: int, n1: int, n2: int, T: int,
+                   bf16_b: bool) -> int:
     """Bytes of tables a block of T frames reads out of L2: the taps (8 a
     channel, zeros past K) once a pass over its columns (T/4 frame passes ×
     the passes over the stage-A output groups), the twiddle row once a
-    frame pass, the n1-point DFT once, and the stage-B table; `folded`:
-    the earlier design instead, which read K taps a channel and the folded
-    n1·n1 × n2 stage-A table once a frame pass, and ran a pass a group of
-    outputs with every thread on one column."""
+    frame pass, the n1-point DFT once, and the stage-B table."""
     frame_passes = T // min(T, 4)
     groups = -(-n1 // K1_GROUP)
-    stageb = 2 * n2 * n2 * (2 if bf16_b else 4)
-    if folded:
-        return frame_passes * (groups * 4 * K * M + 8 * n1 * n1 * n2) + stageb
     k1_passes = -(-groups // (THREADS // min(n2, THREADS)))
     return (frame_passes * (k1_passes * 4 * MAX_TAPS_PER * M + 8 * n1 * n2)
-            + 8 * n1 * n1 + stageb)
+            + 8 * n1 * n1 + 2 * n2 * n2 * (2 if bf16_b else 4))
 
 
 def launch_info(*, nf: int, M: int, K: int, n1: int, n2: int, bf16_b: bool,
@@ -291,8 +293,7 @@ def launch_info(*, nf: int, M: int, K: int, n1: int, n2: int, bf16_b: bool,
     shared bytes a block, blocks, threads a block, blocks an SM, registers
     and local bytes a thread, frames a block; plus the bytes of the tables
     it reads (`table_bytes`: taps, DFT, twiddle row, stage-B table) and
-    `l2_table_bytes`' figures a block for this kernel and the earlier
-    design."""
+    what a block reads of them out of L2 (`l2_table_bytes`)."""
     check_shape(n1, n2, K, bf16_b=bf16_b, out_layout=out_layout)
     out = (ctypes.c_long * len(LAUNCH_KEYS))()
     _build.check(_build.load().channelize_fused_launch(
@@ -305,8 +306,6 @@ def launch_info(*, nf: int, M: int, K: int, n1: int, n2: int, bf16_b: bool,
     info["table_bytes"] = (4 * MAX_TAPS_PER * M + 8 * n1 * n1 + 8 * n1 * n2
                            + 2 * n2 * n2 * (2 if bf16_b else 4))
     info["l2_table_bytes"] = l2_table_bytes(M, K, n1, n2, T, bf16_b)
-    info["l2_table_bytes_folded"] = l2_table_bytes(M, K, n1, n2, T, bf16_b,
-                                                   folded=True)
     return info
 
 

@@ -47,9 +47,18 @@ The public params and state are the serial wideband's (`wideband.make_params`
 rows to PFB bins. Where the reference differs (ROADMAP queue 3): its
 `n2_pref` (256, or 512 for its split quality tier) ignores `chan_factors`
 and the port's unsplit stage B; the port prefers the n2 of the serial
-factoring, `wideband._factors_for`. And its planar predicate does not ask
-for an in-tail FIR block, which the serial planar predicate does; the
-port's does, so a passband too short for one goes to the time-major tier.
+factoring. And its planar predicate does not ask for an in-tail FIR block,
+which the serial planar predicate does; the port's does, so a passband too
+short for one goes to the time-major tier.
+
+The rules this module reads and does not write again: the serial tier
+facts (whether a fused tier serves the configuration, its factoring, the
+raw-plane and audio dtypes) and the input's coercion from
+`runtime/wideband.py` (`tier_facts`, `coerce`); the fused tail's predicate
+and the in-tail FIR block from `runtime/chain.py` (`pallas_tail_ok`,
+`tail_fir_block`); the planar row order from the channelizer that writes
+the planes (`channelize_fused.planar_order`). What is the mesh's own: the
+factoring per shard count, the padded planes and `PLANAR_WASTE_MAX`.
 """
 
 from __future__ import annotations
@@ -150,15 +159,6 @@ def _mesh_tile(f_local: int, cfg: wb.WidebandConfig) -> int:
     return best
 
 
-def _planar_order(n_chan: int, n1: int, n2: int,
-                  split_levels: int = 0) -> np.ndarray:
-    """order[c] = PFB bin of planar row c (c = k1·n2 + col → bin
-    k2(col)·n1 + k1), for the real rows only."""
-    colmap = channelizer.stageb_col_to_k2(n2, split_levels)
-    c = np.arange(n_chan)
-    return colmap[c % n2] * n1 + c // n2
-
-
 class MeshPlan(NamedTuple):
     """How `build` runs a config on d shards."""
     tier: str                  # "planar", "tmajor" or "fallback"
@@ -179,22 +179,18 @@ def plan_mesh(cfg: wb.WidebandConfig, d: int,
     ccfg = cfg.chain_cfg
     f_local = cfg.chunk_in // (d * cfg.n_chan)
     tile = _mesh_tile(f_local, cfg)
-    fused = cfg.time_major and wb._tmajor_fused_ok(cfg)
-    serial = wb._factors_for(cfg)
-    pf = _planar_factors_for(cfg.n_chan, d,
-                             serial[1] if serial is not None else 256)
-    if fused and pf is not None:
+    facts = wb.tier_facts(cfg)
+    pf = _planar_factors_for(cfg.n_chan, d, facts.factors[1]
+                             if facts.factors is not None else 256)
+    if facts.fused and pf is not None:
         n1, n2, n1_pad = pf
         c_loc = (n1_pad // d) * n2
         waste = (n1_pad * n2 - cfg.n_chan) / cfg.n_chan
-        fir_block = fir_matmul.tail_fir_block(
-            ccfg.chunk, ccfg.n_taps,
-            chain_mod._tail_tile(ccfg.chunk, ccfg.n_taps))
-        if (chain_mod._pallas_tail_ok(ccfg, (c_loc,)) and c_loc % 128 == 0
+        if (chain_mod.pallas_tail_ok(ccfg, (c_loc,)) and c_loc % 128 == 0
                 and tile >= 8 and f_local % 8 == 0 and waste <= waste_max
-                and fir_block is not None):
+                and chain_mod.tail_fir_block(ccfg) is not None):
             return MeshPlan("planar", pf, f_local)
-    if fused and chain_mod._pallas_tail_ok(ccfg, (cfg.n_chan // d,)) \
+    if facts.fused and chain_mod.pallas_tail_ok(ccfg, (cfg.n_chan // d,)) \
             and f_local % 8 == 0:
         return MeshPlan("tmajor", None, f_local)
     return MeshPlan("fallback", None, f_local)
@@ -276,16 +272,13 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
     ccfg = cfg.chain_cfg
     M = cfg.n_chan
     ov = ccfg.n_taps - 1
-    fast = cfg.chan_precision == "default"
-    audio_dtype = wb._AUDIO_DTYPES[cfg.audio_dtype]
+    facts = wb.tier_facts(cfg)
+    fast, audio_dtype = facts.bf16_mxu, facts.audio_dtype
     planar = mp.tier == "planar"
     if planar:
         n1, n2, n1_pad = mp.factors
         C_pad = n1_pad * n2
-        order = _planar_order(M, n1, n2, wb._split_levels_for(cfg, n2))
-        raw_dtype = (torch.bfloat16 if fast
-                     and cfg.passband_precision == "default"
-                     else torch.float32)
+        order = channelize_fused.planar_order(M, n1, n2)
     else:
         C_pad = M
         order = np.arange(M)
@@ -314,7 +307,7 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
         x = (re, im) if i16 else cx.CX(re, im)
         tails, (raw_r, raw_i) = channelize_fused.channelize_fused_c(
             plan, params.W_pfb, head, x, factors=(n1, n2), bf16_mxu=fast,
-            out_dtype=raw_dtype, n1_pad=n1_pad)
+            out_dtype=facts.raw_dtype, n1_pad=n1_pad)
         # reshard over the plane axis: [d, n1_pad, f_local, n2] → [d,
         # n1_pad/d, d·f_local, n2]; a process's channel shards' planes
         # together are its n1_pad/world planes, [planes, frames, n2]
@@ -417,7 +410,7 @@ def build(cfg: wb.WidebandConfig, mesh: Mesh,
                              f"{state.chain.agc.gain_db.shape[0]}")
         audios, rssi = [], None
         for iq in iqs:
-            re, im, i16 = _as_shards(wb._coerce(iq, dev), d, cfg.chunk_in,
+            re, im, i16 = _as_shards(wb.coerce(iq, dev), d, cfg.chunk_in,
                                      comm)
             tails, cstate, audio, rssi = step(params, state, re, im, i16)
             last = cx.CX(*(comm.broadcast_last(t)[0] for t in tails))

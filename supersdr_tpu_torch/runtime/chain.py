@@ -10,7 +10,7 @@ gate) is explicit and field for field the reference's, so a state moves
 between the packages unchanged and consecutive chunks are sample-exact
 continuous. The chain batches over any leading axes of the input.
 
-Two back halves, chosen exactly as the reference does (`_pallas_tail_ok`):
+Two back halves, chosen exactly as the reference does (`pallas_tail_ok`):
 a 1-D batch of ≥ 128 receivers in AM/USB/LSB/CW/NBFM with an integer
 upsample runs demod → resample as one kernel launch
 (`ops/cuda/chain_tail.chain_tail_am_c`, `_process_tail_pallas`); anything
@@ -21,9 +21,9 @@ or with a filtered passband (`chain_tail_am`).
 
 What a configuration and its parameters fix is worked out once and held
 (`utils/held.py`): the derived plans of a `ChainConfig`, the tail's tile,
-FIR block and scalars (`_tail_plan`), its parameter vector and the squelch
-at the audio rate (rebuilt when a parameter tensor changes). A chunk only
-launches work on its own data and state.
+FIR block (`tail_fir_block`) and scalars (`_tail_plan`), its parameter
+vector and the squelch at the audio rate (rebuilt when a parameter tensor
+changes). A chunk only launches work on its own data and state.
 
 Under a running `torch.profiler` (`utils/profiling.span`),
 `process_tail_tmajor` records its chunk as the span `chain.tail` with three
@@ -244,8 +244,7 @@ def make_params(cfg: ChainConfig,
             rot_out = _rotation(w * (ns - c), device)
     W_tailpass = None
     if cfg.passband_impl == "matmul" and not cfg.is_rational:
-        bn = fir_matmul.tail_fir_block(cfg.chunk, cfg.n_taps,
-                                       _tail_tile(cfg.chunk, cfg.n_taps))
+        bn = tail_fir_block(cfg)
         if bn is not None:
             w = (fir_matmul.build_w_free_real(*bn, taps)
                  if fir_matmul.taps_are_real(taps)
@@ -307,9 +306,18 @@ def _tail_tile(chunk: int, n_taps: int | None = None) -> int:
     return best[1]
 
 
-def _pallas_tail_ok(cfg: ChainConfig, batch: tuple) -> bool:
-    """The reference's predicate for its fused tail (the tier the port's
-    tail kernels serve)."""
+def tail_fir_block(cfg: ChainConfig) -> tuple | None:
+    """The in-tail FIR block (B, n_prev) at the tail's tile
+    (`fir_matmul.tail_fir_block`), or None where none fits: whether the
+    FIR tail filters the passband itself (`make_params`' `W_tailpass`, the
+    wideband's planar tier)."""
+    return fir_matmul.tail_fir_block(cfg.chunk, cfg.n_taps,
+                                     _tail_tile(cfg.chunk, cfg.n_taps))
+
+
+def pallas_tail_ok(cfg: ChainConfig, batch: tuple) -> bool:
+    """The reference's predicate for its fused tail (`_pallas_tail_ok`:
+    the tier the port's tail kernels serve) on a batch of receivers."""
     return (cfg.mode.upper() in ("AM", "USB", "LSB", "CW", "NBFM")
             and not cfg.is_rational
             and cfg.agc_decimation == 1
@@ -341,8 +349,7 @@ class _TailPlan(NamedTuple):
 def _tail_plan(cfg: ChainConfig) -> _TailPlan:
     tile = _tail_tile(cfg.chunk, cfg.n_taps)
     return _TailPlan(
-        per=cfg.interp_plan.per, tile=tile,
-        fir_block=fir_matmul.tail_fir_block(cfg.chunk, cfg.n_taps, tile),
+        per=cfg.interp_plan.per, tile=tile, fir_block=tail_fir_block(cfg),
         rb=32 if tile % 32 == 0 else (16 if tile % 16 == 0 else 0),
         hang=_tail_hang_window(cfg), demod=_tail_demod(cfg),
         slot0=(cfg.iq_rate / (2.0 * np.pi * cfg.max_dev_hz)
@@ -605,7 +612,7 @@ def process_traced(cfg: ChainConfig, params: ChainParams, state: ChainState,
     os_carry = cx.CX(tail.real.contiguous(), tail.imag.contiguous())
     rssi = smeter.rssi_db(y_rows)
 
-    if cfg.tail_impl == "pallas" and _pallas_tail_ok(cfg, batch):
+    if cfg.tail_impl == "pallas" and pallas_tail_ok(cfg, batch):
         return _process_tail_pallas(cfg, params, state, phase, y, rssi,
                                     os_carry)
 

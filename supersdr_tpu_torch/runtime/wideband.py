@@ -26,14 +26,19 @@ the reference's own predicates:
               pipeline plus one transpose.
 
 `audio_channel_order` maps rows to PFB bins (identity off the planar
-tier) and `channel_freqs` is row-aligned. The state is the same on every
-tier, so a stream may change tier between chunks.
+tier; the planar order is `channelize_fused.planar_order`) and
+`channel_freqs` is row-aligned. The state is the same on every tier, so a
+stream may change tier between chunks.
 
-A chunk's plan (`_plan`: the tier, the chain's configuration, the
-factoring, the planar row order and its inverse on the device) is worked
-out on a stream's first chunk and held for each (configuration, device)
-(`utils/held.plan`), as are the tables its kernels read of the parameters
-(`utils/held.FromTensors`). `utils/held.clear()` forgets them all.
+What the tier is chosen by (`tier_facts`: whether a fused tier serves the
+configuration, whether it is the planar one, the factoring and the
+dtypes) is worked out here alone; the mesh (`parallel/sharded_wideband`)
+reads it. A chunk's plan (`_plan`: the tier, the chain's configuration,
+the factoring, the planar row order and its inverse on the device) is
+worked out on a stream's first chunk and held for each (configuration,
+device) (`utils/held.plan`), as are the tables its kernels read of the
+parameters (`utils/held.FromTensors`). `utils/held.clear()` forgets them
+all.
 
 Under a running `torch.profiler`, `process` records its host work as spans
 (`utils/profiling.span`): `wideband.process` around the chunk, and inside
@@ -94,9 +99,9 @@ class WidebandConfig:
     channelizer) name the reference's forms of one DFT, which the port
     takes as `torch.fft` in float32; `chan_fold_dtype="f16"` rounds the
     fold's input as the reference does. `chan_split2` is the TPU kernel's
-    stage-B blocking: the port's kernel keeps stage B unsplit on every
-    tier (`_split_levels_for`), so it changes nothing the port computes,
-    and `audio_channel_order` gives the port's row order."""
+    stage-B blocking: the port accepts it and ignores it (its kernel runs
+    stage B unsplit on every tier), and `audio_channel_order` gives the
+    port's row order."""
     fs_in: int = 1_200_000
     n_chan: int = 100
     taps_per: int = 8
@@ -225,11 +230,9 @@ def _tmajor_fused_ok(cfg: WidebandConfig) -> bool:
             and cfg.chunk_per_chan % 8 == 0
             and ccfg.passband_impl == "matmul"
             and ccfg.tail_impl == "pallas"
-            and chain._pallas_tail_ok(ccfg, (cfg.n_chan,))):
+            and chain.pallas_tail_ok(ccfg, (cfg.n_chan,))):
         return False
-    if fir_matmul.tail_fir_block(
-            ccfg.chunk, ccfg.n_taps,
-            chain._tail_tile(ccfg.chunk, ccfg.n_taps)) is not None:
+    if chain.tail_fir_block(ccfg) is not None:
         return True
     return ccfg.chunk % ccfg.fir_plan.block == 0
 
@@ -243,10 +246,7 @@ def _planar_active(cfg: WidebandConfig) -> bool:
         return False
     if cfg.chunk_per_chan % cfg.chan_tile_t:
         return False
-    ccfg = cfg.chain_cfg
-    return fir_matmul.tail_fir_block(
-        ccfg.chunk, ccfg.n_taps,
-        chain._tail_tile(ccfg.chunk, ccfg.n_taps)) is not None
+    return chain.tail_fir_block(cfg.chain_cfg) is not None
 
 
 def _factors_for(cfg: WidebandConfig) -> tuple[int, int] | None:
@@ -260,23 +260,39 @@ def _factors_for(cfg: WidebandConfig) -> tuple[int, int] | None:
     return channelizer._pick_factors(cfg.n_chan)
 
 
-def _split_levels_for(cfg: WidebandConfig, n2: int) -> int:
-    """Stage-B split depth: 0 in both tiers, for every `chan_split2`. The
-    reference splits stage B into radix-2 levels to halve TPU MXU work;
-    the port's kernel runs the DFT unsplit, so raw columns are in k2
-    order."""
-    return 0
+class TierFacts(NamedTuple):
+    """What a configuration's tier is chosen by, worked out on the host
+    (`tier_facts`); the serial plan (`_plan`) and the mesh's
+    (`parallel/sharded_wideband`) read them."""
+    fused: bool                    # a time-major fused tier serves it:
+                                   # `time_major` and `_tmajor_fused_ok`
+    planar: bool                   # the planar one: `_planar_active`
+    factors: tuple | None          # the DIF factoring, `_factors_for`
+    bf16_mxu: bool                 # stage B on bf16 operands
+    raw_dtype: torch.dtype         # the planar planes' dtype
+    audio_dtype: torch.dtype
+
+
+def tier_facts(cfg: WidebandConfig) -> TierFacts:
+    """The configuration's `TierFacts`, by the reference's predicates."""
+    fused = cfg.time_major and _tmajor_fused_ok(cfg)
+    return TierFacts(
+        fused=fused, planar=_planar_active(cfg),
+        factors=_factors_for(cfg),
+        bf16_mxu=cfg.chan_precision == "default",
+        raw_dtype=(torch.bfloat16 if cfg.chan_precision == "default"
+                   and cfg.passband_precision == "default"
+                   else torch.float32),
+        audio_dtype=_AUDIO_DTYPES[cfg.audio_dtype])
 
 
 def audio_channel_order(cfg: WidebandConfig) -> np.ndarray:
-    """order[i] = PFB bin of audio/RSSI row i: row c = k1·n2 + k2 holds
-    bin k2·n1 + k1 on the planar tier (identity elsewhere)."""
+    """order[i] = PFB bin of audio/RSSI row i: the planar order of the
+    factoring on the planar tier (`channelize_fused.planar_order`),
+    identity elsewhere."""
     if not _planar_active(cfg):
         return np.arange(cfg.n_chan)
-    n1, n2 = _factors_for(cfg)
-    colmap = channelizer.stageb_col_to_k2(n2, _split_levels_for(cfg, n2))
-    c = np.arange(cfg.n_chan)
-    return colmap[c % n2] * n1 + c // n2
+    return channelize_fused.planar_order(cfg.n_chan, *_factors_for(cfg))
 
 
 def channel_freqs(cfg: WidebandConfig, center_hz: float = 0.0,
@@ -313,7 +329,10 @@ def _count_crossings(planes, device: torch.device) -> None:
                 profiling.count_sync()
 
 
-def _coerce(iq, device):
+def coerce(iq, device):
+    """A chunk on `device`: an int16 pair as a pair of contiguous int16
+    tensors, anything else as a CX of float32 planes (`cx.as_cx`); each
+    plane copied from the host counted (`_count_crossings`)."""
     if _is_i16_pair(iq):
         _count_crossings(iq, device)
         return tuple(torch.as_tensor(p).to(device).contiguous() for p in iq)
@@ -394,35 +413,29 @@ class _Plan(NamedTuple):
     tier: object                   # the tier's function
     ccfg: chain.ChainConfig
     pfb: channelizer.PFBPlan
+    facts: TierFacts
     factors: tuple | None          # the channelizer's (n1, n2)
     order: torch.Tensor | None     # planar row → bin, on the device
     inv: torch.Tensor | None       # its inverse: bin → planar row
-    bf16_mxu: bool                 # stage B on bf16 operands
-    raw_dtype: torch.dtype         # the planar planes' dtype
-    audio_dtype: torch.dtype
 
 
 @held.plan
 def _plan(cfg: WidebandConfig, device: torch.device) -> _Plan:
-    plan = _Plan(
-        tier=_process_fallback, ccfg=cfg.chain_cfg, pfb=pfb_plan(cfg),
-        factors=None, order=None, inv=None,
-        bf16_mxu=cfg.chan_precision == "default",
-        raw_dtype=(torch.bfloat16 if cfg.chan_precision == "default"
-                   and cfg.passband_precision == "default"
-                   else torch.float32),
-        audio_dtype=_AUDIO_DTYPES[cfg.audio_dtype])
+    facts = tier_facts(cfg)
+    plan = _Plan(tier=_process_fallback, ccfg=cfg.chain_cfg,
+                 pfb=pfb_plan(cfg), facts=facts, factors=None, order=None,
+                 inv=None)
     if not cfg.time_major:
         return plan._replace(tier=_process_chan_major)
-    if _planar_active(cfg):
+    if facts.planar:
         # both on the device once: a copy from host memory every chunk
         # would wait for the card, an argsort every chunk is a device sort
         order = audio_channel_order(cfg)
         return plan._replace(
-            tier=_process_planar, factors=_factors_for(cfg),
+            tier=_process_planar, factors=facts.factors,
             order=torch.as_tensor(order, device=device),
             inv=torch.as_tensor(np.argsort(order), device=device))
-    if _tmajor_fused_ok(cfg):
+    if facts.fused:
         return plan._replace(tier=_process_tmajor_fused,
                              factors=channelizer._pick_factors(cfg.n_chan))
     return plan
@@ -447,10 +460,10 @@ def _process_planar(cfg: WidebandConfig, plan: _Plan,
     with profiling.span("wideband.channelize"):
         pfb_carry, (raw_r, raw_i) = channelize_fused.channelize_fused_raw3(
             plan.pfb, params.W_pfb, state.pfb_carry, iq,
-            factors=plan.factors, bf16_mxu=plan.bf16_mxu,
-            out_dtype=plan.raw_dtype)
+            factors=plan.factors, bf16_mxu=plan.facts.bf16_mxu,
+            out_dtype=plan.facts.raw_dtype)
     # next chunk's FIR history: the raw tail [n1, ov, n2] → [n2, n1, ov]
-    # → [M, ov]; row col·n1 + k1 is bin k2·n1 + k1 (col = k2, unsplit)
+    # → [M, ov], row k2·n1 + k1: bin order
     with profiling.span("wideband.history"):
         ov = ccfg.n_taps - 1
         os_carry = cx.CX(
@@ -461,7 +474,7 @@ def _process_planar(cfg: WidebandConfig, plan: _Plan,
     cstate, audioT, rssi = chain.process_tail_tmajor(
         ccfg, params.chain, state.chain, state.chain.phase, os_carry,
         fir_x3=(raw_r, raw_i), chan_order=plan.order, chan_inv=plan.inv,
-        audio_dtype=plan.audio_dtype)
+        audio_dtype=plan.facts.audio_dtype)
     return (WidebandState(pfb_carry=pfb_carry, chain=cstate),
             chain.ChainOutput(audio=audioT, rssi=rssi, baseband=None))
 
@@ -478,13 +491,14 @@ def _process_tmajor_fused(cfg: WidebandConfig, plan: _Plan,
     with profiling.span("wideband.channelize"):
         pfb_carry, chansT = channelize_fused.channelize_fused_c(
             plan.pfb, params.W_pfb, state.pfb_carry, iq,
-            factors=plan.factors, bf16_mxu=plan.bf16_mxu, out_layout="time")
+            factors=plan.factors, bf16_mxu=plan.facts.bf16_mxu,
+            out_layout="time")
     chansT = cx.CX(*chansT)
     with profiling.span("wideband.history"):
         ov = ccfg.n_taps - 1
         os_carry = cx.CX(chansT.re[-ov:].T.contiguous(),
                          chansT.im[-ov:].T.contiguous())
-    kw = dict(audio_dtype=plan.audio_dtype)
+    kw = dict(audio_dtype=plan.facts.audio_dtype)
     if params.chain.W_tailpass is not None:
         yT = None
         kw["fir_x"] = chansT
@@ -505,7 +519,7 @@ def _process_fallback(cfg: WidebandConfig, plan: _Plan,
     """The time-major layout off the fused tiers: the chan-major
     pipeline plus one transpose."""
     st, out = _process_chan_major(cfg, plan, params, state, iq)
-    audioT = out.audio.T.to(plan.audio_dtype).contiguous()
+    audioT = out.audio.T.to(plan.facts.audio_dtype).contiguous()
     bb = cx.CX(out.baseband.re.T, out.baseband.im.T)
     return st, chain.ChainOutput(audio=audioT, rssi=out.rssi, baseband=bb)
 
@@ -521,7 +535,7 @@ def process(cfg: WidebandConfig, params: WidebandParams,
     device = params.W_pfb.device
     with profiling.span("wideband.process"):
         with profiling.span("wideband.ingest"):
-            iq = _coerce(iq, device)
+            iq = coerce(iq, device)
         with profiling.span("wideband.plan"):
             plan = _plan(cfg, device)
         return plan.tier(cfg, plan, params, state, iq)

@@ -17,19 +17,17 @@ writes DEST/<NAME>/ (`supersdr_tpu_torch/` without its build outputs, and
              arithmetic between outputs; here one for each);
   one_shard  the shard offsets as constants 0 (right for one shard only,
              as `kernel_ab.py`'s chan_* cases are, the mesh form aside):
-             what the run-time offsets of the mesh form cost the plain form;
-  persistent the persistent 512-thread design measured and not kept
-             (`chan_persistent.patch`, on the kernel and its wrapper).
+             what the run-time offsets of the mesh form cost the plain form.
 
 Each phase is compiled out behind a run-time condition that never holds
 (`nf < 0`), so the compiler keeps what the other phases do. The edits find
 their lines in both designs of the kernel (stage A factored, and the
 earlier one with the folded stage-A table); a source that holds neither
 stops the tool. The tool copies the tree it sits in: to split an older
-tree's kernel, put this file and `tail_phases.py` in that tree's
-`supersdr_tpu_torch/tools/` and run it there. DEST should be a directory
-that .gitignore lists (`.scratch/`). The copies' outputs disagree with the
-plain version by design. Then
+tree's kernel, put this file in that tree's `supersdr_tpu_torch/tools/`
+and run it there. DEST should be a directory that .gitignore lists
+(`.scratch/`). The copies' outputs disagree with the plain version by
+design. Then
 
     python3 supersdr_tpu_torch/tools/kernel_ab.py \\
         --what chan_fast,chan_quality . DEST/no_stageb DEST/no_phase1 \\
@@ -41,18 +39,12 @@ times them against the tree in turns (A B B A).
 from __future__ import annotations
 
 import argparse
-import re
 import shutil
 import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
-if str(REPO) not in sys.path:  # run as a script
-    sys.path.insert(0, str(REPO))
-from supersdr_tpu_torch.tools.tail_phases import apply_patch  # noqa: E402
-
 SOURCE = Path("supersdr_tpu_torch") / "csrc" / "channelize_fused.cu"
-PATCH = Path(__file__).resolve().parent / "chan_persistent.patch"
 
 _STAGEB = "  for (int nb = warp * kWN; nb < n2; nb += kWarps * kWN) {\n"
 _STAGES = "  for (int s = 0; s < n_stages; ++s) {\n"
@@ -111,27 +103,14 @@ def apply_phase(src: str, name: str) -> str:
                      f"{SOURCE} matches the tool's lines")
 
 
-def patch_files(patch: str) -> dict:
-    """{path in the tree: its one-file diff} of a unified diff whose files
-    are named a/<path> and b/<path>."""
-    parts = re.split(r"^--- a/(\S+)\n\+\+\+ b/\S+\n", patch, flags=re.M)
-    return dict(zip(parts[1::2], parts[2::2]))
-
-
 def make_copy(dest: Path, name: str) -> Path:
-    """DEST/name: the tree with PHASES[name] applied to the channelizer,
-    or (name "persistent") with `chan_persistent.patch` applied."""
+    """DEST/name: the tree with PHASES[name] applied to the channelizer."""
     out = dest / name
     if out.exists():
         shutil.rmtree(out)
     shutil.copytree(REPO / "supersdr_tpu_torch", out / "supersdr_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     shutil.copy2(REPO / "chip_smoke.py", out / "chip_smoke.py")
-    if name == "persistent":
-        for rel, diff in patch_files(PATCH.read_text()).items():
-            path = out / rel
-            path.write_text(apply_patch(path.read_text(), diff))
-        return out
     path = out / SOURCE
     path.write_text(apply_phase(path.read_text(), name))
     return out
@@ -140,11 +119,10 @@ def make_copy(dest: Path, name: str) -> Path:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dest", type=Path)
-    names = [*PHASES, "persistent"]
-    ap.add_argument("names", nargs="*", default=names)
+    ap.add_argument("names", nargs="*", default=list(PHASES))
     args = ap.parse_args()
-    if set(args.names) - set(names):
-        ap.error(f"names: {', '.join(names)}")
+    if set(args.names) - set(PHASES):
+        ap.error(f"names: {', '.join(PHASES)}")
     for name in args.names:
         print(make_copy(args.dest, name))
     return 0

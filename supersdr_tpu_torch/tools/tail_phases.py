@@ -7,8 +7,7 @@ writes DEST/<NAME>/ (`supersdr_tpu_torch/` without its build outputs, and
 `chip_smoke.py`) for each NAME (default: all), with `csrc/chain_tail.cu`
 edited in both time-major entries (`chain_tail_fir`, `chain_tail_am`:
 `no_resampler`, `no_stores`), in the FIR entry only (`no_fir`,
-`no_scans`, `no_window`, `no_loads`, `stagger`) or in the 8-channel
-non-FIR entry only (`exchange*`):
+`no_scans`, `no_window`, `no_loads`, `stagger`):
 
   no_resampler        no resampler and no audio out;
   no_stores           the resampler as it is, no global store;
@@ -28,27 +27,12 @@ non-FIR entry only (`exchange*`):
                       so that the tensor cores and the CUDA cores would
                       work at once (measured and not kept: slower on both
                       tiers);
-  exchange            the audio as whole 128-byte lines through the 4-block
-                      cluster (`tail_exchange.patch`): a warp a channel in
-                      the resampler, 4 input samples a lane; each block
-                      stages its rows in shared memory and, after a cluster
-                      barrier, stores a quarter of the rows for all 32
-                      channels, loading 16 bytes at a time from the four
-                      blocks over distributed shared memory (first measured
-                      on both time-major entries; its FIR-entry part went
-                      with the FIR kernel it edited);
-  exchange_no_stores  exchange without the global stores;
-  exchange_local      exchange's resampler and staging, but each block
-                      stores its own 8 channels' 32-byte row pieces, with
-                      block barriers in place of the cluster barriers and
-                      no distributed shared memory.
 
 DEST should be a directory that .gitignore lists (`.scratch/`). The
-phase copies' audio disagrees with the plain versions by design; the
-exchange copies' audio is the tree's. Then
+phase copies' audio disagrees with the plain versions by design. Then
 
     python3 supersdr_tpu_torch/tools/kernel_ab.py \\
-        --what tail_fast,tail_quality,am_time . DEST/exchange ...
+        --what tail_fast,tail_quality,am_time . DEST/no_fir ...
 
 times them against the tree in turns (A B B A).
 """
@@ -56,14 +40,12 @@ times them against the tree in turns (A B B A).
 from __future__ import annotations
 
 import argparse
-import re
 import shutil
 import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 SOURCE = Path("supersdr_tpu_torch") / "csrc" / "chain_tail.cu"
-PATCH = Path(__file__).resolve().parent / "tail_exchange.patch"
 
 _CALL = "\n    tail_resample_any(a, "
 _FIR = ("  constexpr int tiles = kTile / 16 / kCB;  // row tiles a warp: a "
@@ -94,36 +76,6 @@ _TILE_END = ("    __syncthreads();\n"
              "    if (t0 + 2 * T < nf) fetch(t0 + 2 * T);\n")
 _FETCH = "  if (T < nf) fetch(T);\n"
 _STORE = "          dst[(((long)t0 + n0 + r) * 4 + q) * a.a_st] = acc[r][q];\n"
-_X_STORE = "        if (n < tlen && ch < a.C)\n          __stcs("
-_X_ROUND = "    for (int r0 = 0; r0 < kRS; r0 += nr) {\n"
-_X_ROUND_END = ("      cluster_arrive();  // this staging area is free again\n"
-                "    }\n")
-_X_LOCAL_ROUND = """    for (int r0 = 0; r0 < kRS; r0 += nr) {
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < kRS; ++r)
-        if (r >= r0 && r < r0 + nr)
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            my[8 * (((lane << sh) + 4 * (r - r0) + q) ^ (lane & 3))] =
-                acc[r][q];
-      __syncthreads();
-      for (int ci = tid; ci < 256 * nr; ci += kThreads) {
-        const int rho = ci >> 1, l = rho >> sh, sw = l >> 2;
-        float4 u = reinterpret_cast<const float4*>(
-            sm.stg)[2 * (rho ^ (l & 3)) + ((ci & 1) ^ (sw >> 2))];
-        if (sw & 1) u = make_float4(u.y, u.x, u.w, u.z);
-        if (sw & 2) u = make_float4(u.z, u.w, u.x, u.y);
-        const int n = h + kRS * l + r0 + ((rho & ((1 << sh) - 1)) >> 2);
-        const int ch = cl0 + (int)rank * kCB + 4 * (ci & 1);
-        if (n < tlen && ch < a.C)
-          __stcs(reinterpret_cast<float4*>(
-                     a.audio + (((long)t0 + n) * 4 + (rho & 3)) * a.a_st +
-                     ch),
-                 u);
-      }
-    }
-"""
 
 
 def _replace(src: str, old: str, new: str, count: int) -> str:
@@ -131,40 +83,6 @@ def _replace(src: str, old: str, new: str, count: int) -> str:
         raise SystemExit(f"tail_phases: expected {count} of {old!r} in "
                          f"{SOURCE}, found {src.count(old)}")
     return src.replace(old, new)
-
-
-def apply_patch(src: str, patch: str) -> str:
-    """src with the hunks of a one-file unified diff applied in order, each
-    found by its exact old lines."""
-    lines = src.splitlines(keepends=True)
-    out: list = []
-    pos = 0
-    for hunk in re.split(r"^@@ [^\n]* @@[^\n]*\n", patch, flags=re.M)[1:]:
-        old = [ln[1:] for ln in hunk.splitlines(keepends=True)
-               if ln[:1] in (" ", "-")]
-        new = [ln[1:] for ln in hunk.splitlines(keepends=True)
-               if ln[:1] in (" ", "+")]
-        at = next((i for i in range(pos, len(lines) - len(old) + 1)
-                   if lines[i:i + len(old)] == old), None)
-        if at is None:
-            raise SystemExit(f"a hunk of the patch does not apply (after "
-                             f"line {pos + 1} of the source)")
-        out += lines[pos:at] + new
-        pos = at + len(old)
-    return "".join(out + lines[pos:])
-
-
-def _exchange(src: str) -> str:
-    return apply_patch(src, PATCH.read_text())
-
-
-def _exchange_local(src: str) -> str:
-    src = _exchange(src)
-    start = src.index(_X_ROUND)
-    end = src.index(_X_ROUND_END, start) + len(_X_ROUND_END)
-    if src.count(_X_ROUND) != 1 or src.count(_X_ROUND_END) != 1:
-        raise SystemExit("tail_phases: the exchange's round is not unique")
-    return src[:start] + _X_LOCAL_ROUND + src[end:]
 
 
 EDITS = {
@@ -185,11 +103,6 @@ EDITS = {
                  1), _TILE_END,
         "    if (more && w >= 4) {\n      float* yn = ybase + (b ^ 1) * "
         "fl.ybuf();\n" + _FIR_ARGS + "    }\n" + _TILE_END, 1),
-    "exchange": _exchange,
-    "exchange_no_stores": lambda s: _replace(
-        _exchange(s), _X_STORE, _X_STORE.replace("a.C)", "a.C && t0 < 0)"),
-        1),
-    "exchange_local": _exchange_local,
 }
 
 

@@ -7,8 +7,7 @@ Here: the factors rebuild A; the reference's A still matches the port's
 bit for bit; a float64 model of the factored stage A (then stage B) agrees
 with the float32 plain version; the tile plan the wrapper mirrors from the
 kernel, and the shapes it refuses before anything is built; and the phase
-copies of `tools/chan_phases.py` (and the persistent design's patch) apply
-to the kernel's source.
+copies of `tools/chan_phases.py` apply to the kernel's source.
 
 Tolerances: each factor is rounded once to float32 (≤ 2^-24 relative a
 component, magnitude 1), so their product is within 2e-7 of A's float32
@@ -106,16 +105,13 @@ def test_tile_frames(n1, n2, split, time, T):
     assert tcf.tile_frames(n1, n2, split=split, time=time) == T
 
 
-@pytest.mark.parametrize("n1,n2,bf16_b,factored,folded", [
-    (10, 256, True, 467744, 835584), (10, 256, False, 729888, 1097728),
-    (20, 128, True, 273536, 1212416)])
-def test_l2_table_bytes(n1, n2, bf16_b, factored, folded):
+@pytest.mark.parametrize("n1,n2,bf16_b,factored", [
+    (10, 256, True, 467744), (10, 256, False, 729888),
+    (20, 128, True, 273536)])
+def test_l2_table_bytes(n1, n2, bf16_b, factored):
     """What a block of 8 frames reads of the tables out of L2 at 2560
-    channels and 8 taps: the factored kernel against the earlier folded table
-    (0.84 / 1.10 MB a block at (10, 256))."""
-    args = (2560, 8, n1, n2, 8, bf16_b)
-    assert tcf.l2_table_bytes(*args) == factored
-    assert tcf.l2_table_bytes(*args, folded=True) == folded
+    channels and 8 taps."""
+    assert tcf.l2_table_bytes(2560, 8, n1, n2, 8, bf16_b) == factored
 
 
 @pytest.mark.parametrize("n1,n2,K,bf16_b,layout,what", [
@@ -141,22 +137,15 @@ def test_wrapper_refuses_shapes_before_launch(n1, n2, K, bf16_b, layout,
                            out_layout=layout) == 8
 
 
-@pytest.mark.parametrize("name", sorted([*chan_phases.PHASES, "persistent"]))
+@pytest.mark.parametrize("name", sorted(chan_phases.PHASES))
 def test_phase_copies_apply_to_the_source(name, tmp_path):
     """Every copy the tool makes applies to the kernel's source as it
-    stands (the persistent design's patch to the kernel and its wrapper),
-    and changes it; a source with none of a phase's lines stops it."""
+    stands, and changes it; a source with none of a phase's lines stops
+    it."""
     out = chan_phases.make_copy(tmp_path, name)
     src = (Path(chan_phases.REPO) / chan_phases.SOURCE).read_text()
     got = (out / chan_phases.SOURCE).read_text()
     assert got != src and (out / "chip_smoke.py").is_file()
     assert not (out / "supersdr_tpu_torch" / "build").exists()
-    if name == "persistent":
-        files = chan_phases.patch_files(chan_phases.PATCH.read_text())
-        assert sorted(files) == [str(chan_phases.SOURCE),
-                                 "supersdr_tpu_torch/ops/cuda/"
-                                 "channelize_fused.py"]
-        assert "const ChanArgs a" in got
-    else:
-        with pytest.raises(SystemExit):
-            chan_phases.apply_phase("int main() {}\n", name)
+    with pytest.raises(SystemExit):
+        chan_phases.apply_phase("int main() {}\n", name)

@@ -167,7 +167,7 @@ def test_outputs_are_bit_for_bit_with_the_profiler_on(kw):
 
 
 def test_host_syncs_count_each_crossing_of_a_card(monkeypatch):
-    """`_coerce` counts a plane that is not on the params' card, the
+    """`coerce` counts a plane that is not on the params' card, the
     monitor a fetch from a card; a CPU run crosses nothing. (A stand-in
     device type: this machine has no card.)"""
     cuda = torch.device("cuda", 0)

@@ -84,12 +84,3 @@ def test_phase_copies_apply_to_the_source(name, tmp_path):
     assert got != src
     assert (out / "chip_smoke.py").is_file()
     assert not (out / "supersdr_tpu_torch" / "build").exists()
-    if name.startswith("exchange"):
-        assert "ld.shared::cluster" in got and "cluster_ctarank" in got
-
-
-def test_apply_patch_refuses_a_hunk_that_does_not_match():
-    with pytest.raises(SystemExit):
-        tail_phases.apply_patch("a\nb\n", "@@ -1,1 +1,1 @@\n-c\n+d\n")
-    assert tail_phases.apply_patch("a\nb\nc\n",
-                                   "@@ -2,1 +2,1 @@\n-b\n+x\n") == "a\nx\nc\n"

@@ -159,7 +159,7 @@ def test_channelizer_time_layout_is_the_bin_ordered_transpose():
     tcfg = twb.WidebandConfig(**BASE, **twb.PROFILES["quality"])
     p = twb.make_params(tcfg, device="cpu")
     st = twb.init_state(tcfg, device="cpu")
-    iq = twb._coerce(_chunks(BASE, "f32")[0], torch.device("cpu"))
+    iq = twb.coerce(_chunks(BASE, "f32")[0], torch.device("cpu"))
     _, (tr, ti) = cf.channelize_fused_c(
         twb.pfb_plan(tcfg), p.W_pfb, st.pfb_carry, iq, factors=(2, 256),
         bf16_mxu=False, out_layout="time")
