@@ -139,6 +139,14 @@ Phases, each printed as it runs; any failure exits non-zero:
      of `push` and of its host copies; `cli monitor --n-chan 2560
      --headless` (the reference's defaults: chan-major, no kernel) on the
      CLI's 30.72 MHz WAV, the card against --device cpu;
+ 12b. the live monitor's held graph (`graph`): `MonitorCore`'s graphed
+     process function at MID (the live cell's 512 frames) on both tiers
+     against its eager one, 64 wire chunks from pinned memory: audio, RSSI
+     and the final state bit for bit, with a foreign state copied in, an
+     AGC parameter written in place and a new parameters object each read
+     by the next chunk; one launch of each counted kernel a replay, and
+     both kernels once a chunk in a profiler trace of 8 replays; push +
+     fetch p50 / p95 ms graphed against eager;
  13. the live interactive session (`live`): `cli kiwi --tui` against the
      fake KiwiSDR with keys injected (SUB on, SUB to the centre, AM, a
      retune, SUB off), the stereo WAV on the card against --device cpu;
@@ -836,16 +844,8 @@ def _am_refusals(C: int, nf: int, gen, device) -> None:
 
 def _wrappers() -> dict:
     """Each kernel's wrapper by its name in the JSON summary."""
-    from supersdr_tpu_torch.ops.cuda import chain_tail as ct
-    from supersdr_tpu_torch.ops.cuda import channelize_fused as cf
-    from supersdr_tpu_torch.ops.cuda import halo
-    from supersdr_tpu_torch.ops.cuda import pfb_fold as pf
-    from supersdr_tpu_torch.ops.cuda import squelch_gate as sg
-    return {"channelize_fused": cf.channelize_fused_raw3,
-            "chain_tail": ct.chain_tail_fir, "pfb_fold": pf.pfb_fold,
-            "chain_tail_am": ct.chain_tail_am,
-            "chain_tail_am_c": ct.chain_tail_am_c, "halo": halo.left_halo,
-            "squelch_gate": sg.squelch_gate_tmajor}
+    from supersdr_tpu_torch.ops import cuda
+    return cuda.counted()
 
 
 def _reset_counts() -> None:
@@ -2653,9 +2653,9 @@ def _proc_mesh(rank: int, world: int, dev, iters: int = 3,
     bit, or ≥ TOL_TIER_DB["fast"]), column for column (both keep
     `channel_order`); then ms a chunk over the processes and of one
     process alone."""
-    from supersdr_tpu_torch.parallel import collectives
     from supersdr_tpu_torch.parallel import sharded_wideband as sw
     from supersdr_tpu_torch.runtime import wideband as wb
+    from supersdr_tpu_torch.utils import held
     cfg = wb.WidebandConfig(**HEADLINE, **wb.PROFILES["fast"])
     params = wb.make_params(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -2682,8 +2682,7 @@ def _proc_mesh(rank: int, world: int, dev, iters: int = 3,
     snr = min(_snr_db(b, a) for a, b in zip(got["procs"][0][:2],
                                              got["one"][0][:2]))
     state_same = all(torch.equal(a, b) for a, b in zip(
-        collectives._leaves(got["procs"][1]),
-        collectives._leaves(got["one"][1])))
+        held.leaves(got["procs"][1]), held.leaves(got["one"][1])))
     want = {**{k: 0 for k in _wrappers()}, "channelize_fused": 4,
             "chain_tail": 4, "halo": 4}
     if launches != want or not (same or snr >= TOL_TIER_DB["fast"]) \
@@ -3278,14 +3277,47 @@ def _same_activity(label, got, want, rssi_tol) -> None:
         raise AssertionError(f"{label} disagrees")
 
 
+def _monitor_replays_traced(core, chunks, tmp: str) -> None:
+    """The wire chunks of a `MonitorCore` replay its held graph, whose
+    launches the wrappers count from its recording: a profiler trace of
+    the replays must hold each counted kernel once a chunk, as counted."""
+    from supersdr_tpu_torch.runtime import stream_graph as sg
+    from supersdr_tpu_torch.utils import profiling
+    if not isinstance(core.process_fn, sg.GraphRunner):
+        raise AssertionError("the monitor's wire chunks are not graphed")
+    logdir = os.path.join(tmp, "mon_i16_trace")
+    before = _counts()
+    with profiling.trace(logdir):
+        # a tracer that ran before in the process records the first
+        # replay of a session in part (`phase_graph`): one replay first,
+        # then a marker kernel, then the counted ones
+        core.push(chunks[0])
+        torch.cuda._sleep(0)
+        for c in chunks:
+            core.push(c)
+    kernels = _trace_kernels(profiling.trace_files(logdir)[-1],
+                             after=profiling.MARKER_KERNEL)
+    ran = {w: sum(v for k, v in kernels.items() if name in k)
+           for w, name in (("channelize_fused", "channelize_mma_kernel"),
+                           ("chain_tail", "chain_tail_fir_kernel"))}
+    counted = _grew(before)
+    n = len(chunks)
+    print(f"monitor i16 replays traced: {n} chunks after one and a marker "
+          f"ran {ran}; counted {counted} over {n + 1}", flush=True)
+    if ran != {w: n for w in ran} or counted != {w: n + 1 for w in ran}:
+        raise AssertionError("the monitor's replays ran other launches "
+                             "than they counted")
+
+
 def phase_monitor(device, tmp: str) -> dict:
     """The wideband monitor at full width: `MonitorCore` over the HEADLINE
     fast config (planar, 2560 channels, 16128 frames a chunk) on
     MONITOR_CHUNKS chunks of CLI_CARRIERS' capture held on the card, fed
     as complex64 and as int16 wire pairs, each against the same run with
     the plain kernels on the card (activity rows and frequencies, RSSI
-    table, the selected channel's recording); `MonitorCore` over
-    `sharded_wideband.build` on 8 shards; ms a chunk of `push` and of its
+    table, the selected channel's recording); the int16 core's graph
+    replays traced, each counted kernel once a chunk as counted;
+    `MonitorCore` over `sharded_wideband.build` on 8 shards; ms a chunk of `push` and of its
     host copies; then `cli monitor --n-chan 2560 --headless` on the CLI's
     30.72 MHz WAV, the card against --device cpu."""
     from supersdr_tpu_torch.parallel import sharded_wideband as sw
@@ -3335,6 +3367,7 @@ def phase_monitor(device, tmp: str) -> dict:
         cores[kind] = core
         del plain
         torch.cuda.empty_cache()
+    _monitor_replays_traced(cores["i16"], i16, tmp)
     # the sharded pipeline's process fn, unmodified
     proc = sw.build(cfg, sw.make_mesh(MESH_D, device))
     params = cores["f32"].params
@@ -3549,6 +3582,164 @@ def phase_live(device, tmp: str) -> dict:
     return out
 
 
+GRAPH_CHUNKS = 64
+GRAPH_RING = 8
+
+
+def _graph_ring(cfg, device) -> list:
+    """GRAPH_RING wire chunks (int16 pairs in pinned host memory) of the
+    CLI's carriers at cfg's shape."""
+    n = cfg.chunk_in
+    z = _wide_capture_dev(n * GRAPH_RING, cfg.fs_in, cfg.n_chan, device)
+    q = (torch.view_as_real(z) * 32768.0).round().clamp(-32768, 32767)
+    q = q.to(torch.int16).cpu()
+    return [tuple(q[i * n:(i + 1) * n, j].contiguous().pin_memory()
+                  for j in range(2)) for i in range(GRAPH_RING)]
+
+
+def _grew(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+
+
+def phase_graph(device, tmp: str) -> dict:
+    """The live monitor's held graph (`runtime/stream_graph.py`) at the
+    live shape (MID: 2560 channels, 512 frames a chunk) on both tiers:
+    GRAPH_CHUNKS wire chunks from pinned memory through a default
+    `MonitorCore`'s graphed process function and through its eager one,
+    every chunk's audio and RSSI and the final state equal bit for bit; a
+    fresh `init_state` handed in is copied in; an in-place `copy_` into
+    an AGC parameter and a new parameters object are read by the next
+    chunk (each changes its audio, and the graph is recorded anew); each
+    counted wrapper grows by exactly one a replay (the channelizer's and
+    the FIR tail's); a profiler trace of 8 replays holds
+    `channelize_mma_kernel` and `chain_tail_fir_kernel` once a chunk;
+    push + fetch p50 ms of a graphed and an eager `MonitorCore`."""
+    from supersdr_tpu_torch.apps.monitor import MonitorCore
+    from supersdr_tpu_torch.runtime import stream_graph as sg
+    from supersdr_tpu_torch.runtime import wideband as wb
+    from supersdr_tpu_torch.utils import held, profiling
+    total = {k: 0 for k in _wrappers()}
+    one = {"channelize_fused": 1, "chain_tail": 1}
+    out = {}
+    for tier in ("fast", "quality"):
+        cfg = wb.WidebandConfig(**MID, **wb.PROFILES[tier])
+        ring = _graph_ring(cfg, device)
+        core = MonitorCore(cfg, device=device)
+        runner = core.process_fn
+        if not isinstance(runner, sg.GraphRunner):
+            raise AssertionError(f"graph {tier}: the monitor is not graphed")
+        eager, params = runner.eager, core.params
+        st_g = st_e = core.state
+        recorded = []
+        for i in range(GRAPH_CHUNKS):
+            c = ring[i % GRAPH_RING]
+            if i == GRAPH_CHUNKS // 4:        # a foreign state
+                st_g = wb.init_state(cfg, device=device)
+                st_e = wb.init_state(cfg, device=device)
+            if i in (GRAPH_CHUNKS // 2, 3 * GRAPH_CHUNKS // 4):
+                old = params
+                if i == GRAPH_CHUNKS // 2:    # written in place
+                    old = sg._clone(params)
+                    params.chain.agc.target_db.copy_(
+                        params.chain.agc.target_db - 6.0)
+                else:                         # a new object
+                    agc = params.chain.agc._replace(
+                        target_db=params.chain.agc.target_db + 3.0)
+                    params = params._replace(
+                        chain=params.chain._replace(agc=agc))
+                _, stale, _ = eager(old, sg._clone(st_e), c)
+            st_e, a_e, r_e = eager(params, st_e, c)
+            before = _counts()
+            st_g, a_g, r_g = runner(params, st_g, c)
+            grew = _grew(before)
+            if i in (GRAPH_CHUNKS // 2, 3 * GRAPH_CHUNKS // 4):
+                # recorded anew: the recording's eager run, then the replay
+                recorded.append(grew)
+                if grew != {k: 2 * v for k, v in one.items()}:
+                    raise AssertionError(f"graph {tier}: chunk {i} "
+                                         f"launched {grew} recording anew")
+                if torch.equal(stale, a_e):
+                    raise AssertionError(f"graph {tier}: the parameters' "
+                                         f"change at chunk {i} moved "
+                                         f"nothing")
+            elif grew != one:
+                raise AssertionError(f"graph {tier}: chunk {i} launched "
+                                     f"{grew}, a replay launches {one}")
+            if st_g is not runner.state or not (
+                    torch.equal(a_g, a_e) and torch.equal(r_g, r_e)):
+                raise AssertionError(f"graph {tier}: chunk {i} differs "
+                                     f"from the eager chunk")
+        same = all(torch.equal(a, b) for a, b in
+                   zip(held.leaves(st_g), held.leaves(st_e), strict=True))
+        if not same:
+            raise AssertionError(f"graph {tier}: the final state differs")
+        # a profiler trace of 8 replays
+        logdir = os.path.join(tmp, f"graph_{tier}")
+        profiling.clear_spans()
+        with profiling.trace(logdir):
+            # a tracer that ran before in the process records the first
+            # replay of a session in part (its nodes before the FIR tail):
+            # one replay first, then a marker kernel, then the 8 counted
+            with profiling.span("monitor.push"):
+                st_g, _, _ = runner(params, st_g, ring[0])
+            torch.cuda._sleep(0)
+            for i in range(8):
+                with profiling.span("monitor.push"):
+                    st_g, _, _ = runner(params, st_g, ring[i])
+        replays = sum(profiling.graphs().values())
+        profiling.clear_spans()
+        kernels = _trace_kernels(profiling.trace_files(logdir)[-1],
+                                 after=profiling.MARKER_KERNEL)
+        chan = sum(v for k, v in kernels.items()
+                   if "channelize_mma_kernel" in k)
+        tail = sum(v for k, v in kernels.items()
+                   if "chain_tail_fir_kernel" in k)
+        print(f"graph {tier} MID: {GRAPH_CHUNKS} chunks graphed and eager "
+              f"equal bit for bit (audio, RSSI, final state; a foreign "
+              f"state at {GRAPH_CHUNKS // 4}, AGC target written in place "
+              f"at {GRAPH_CHUNKS // 2}, new parameters at "
+              f"{3 * GRAPH_CHUNKS // 4}: launches {recorded}); a replay "
+              f"launches {one}; 8 traced replays after one and a marker "
+              f"({replays} of 9 held): channelize_mma_kernel {chan}, "
+              f"chain_tail_fir_kernel {tail}", flush=True)
+        if (chan, tail, replays) != (8, 8, 9):
+            raise AssertionError(f"graph {tier}: the trace of 8 replays "
+                                 f"holds {chan} / {tail} kernels: "
+                                 f"{kernels}")
+        # push + fetch, graphed against eager, from pinned memory
+        core.params = params
+        eager_core = MonitorCore(cfg, params=params, process_fn=eager,
+                                 device=device)
+        ms = {}
+        before = _counts()
+        for name, mc in (("graphed", core), ("eager", eager_core)):
+            for c in ring[:4]:
+                mc.push(c)
+                mc.selected_audio()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            secs = []
+            for i in range(GRAPH_CHUNKS):
+                t0 = time.perf_counter()
+                mc.push(ring[i % GRAPH_RING])
+                mc.selected_audio()
+                secs.append(time.perf_counter() - t0)
+            ms[name] = (float(np.percentile(secs, 50)) * 1e3,
+                        float(np.percentile(secs, 95)) * 1e3,
+                        torch.cuda.max_memory_allocated() / 2**30,
+                        torch.cuda.memory_reserved() / 2**30)
+        for k, v in _grew(before).items():
+            total[k] += v
+        print(f"graph {tier} MID push + fetch ms p50 / p95, peak allocated "
+              f"/ reserved GiB over {GRAPH_CHUNKS} chunks: " + "; ".join(
+                  f"{k} {v[0]:.4f} / {v[1]:.4f}, {v[2]:.4f} / {v[3]:.4f}"
+                  for k, v in ms.items()), flush=True)
+        out[tier] = ms
+        del core, eager_core, runner, ring
+        torch.cuda.empty_cache()
+    return {"launches": total, "ms": out}
+
+
 def phase_checkpoint(device, tmp: str, seed: int = 24) -> dict:
     """Stream checkpoint/resume on the card: HEADLINE fast planar, 4 chunks
     straight against 2 chunks, `save_state`, `load_state` into a fresh
@@ -3627,14 +3818,18 @@ def phase_checkpoint(device, tmp: str, seed: int = 24) -> dict:
     return {"launches": launches}
 
 
-def _trace_kernels(path: str) -> dict:
-    """Kernel events of a Chrome trace: name → count."""
+def _trace_kernels(path: str, after: str | None = None) -> dict:
+    """Kernel events of a Chrome trace: name → count; with `after`, only
+    those that start after the first kernel whose name holds it."""
     with open(path) as f:
-        events = json.load(f)["traceEvents"]
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+    if after is not None:
+        t0 = min(e["ts"] for e in events if after in e["name"])
+        events = [e for e in events if e["ts"] > t0]
     names = {}
     for e in events:
-        if e.get("cat") == "kernel":
-            names[e["name"]] = names.get(e["name"], 0) + 1
+        names[e["name"]] = names.get(e["name"], 0) + 1
     return names
 
 
@@ -3934,6 +4129,7 @@ def main() -> int:
         session = phase_session(dev, tmp)
         torch.cuda.empty_cache()
         monitor = phase_monitor(dev, tmp)
+        graph = phase_graph(dev, tmp)
         live = phase_live(dev, tmp)
         checkpoint = phase_checkpoint(dev, tmp)
         torch.cuda.empty_cache()
@@ -3942,7 +4138,8 @@ def main() -> int:
              "tmajor": tmajor, "mesh": mesh, "mesh_tiers": mesh_tiers,
              **cli_runs, "session": session, "monitor": monitor["monitor"],
              "monitor_i16": monitor["monitor_i16"],
-             "monitor_mesh": monitor["monitor_mesh"], "live": live,
+             "monitor_mesh": monitor["monitor_mesh"], "graph": graph,
+             "live": live,
              "checkpoint": checkpoint, "trace": traced, "bench": bench_run,
              "variants": variants, "controls_squelch": controls,
              **procs["paths"]}

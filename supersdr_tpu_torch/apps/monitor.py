@@ -22,7 +22,12 @@ The pipeline runs on `device` (None: the params' device when params are
 given, else the current CUDA device). Each chunk's audio and RSSI stay on
 the device: only the RSSI row means (n_chan floats) come to the host every
 chunk, and the selected row when it is recorded or asked for (at 2560
-channels × 16128 frames the whole audio is 660 MB a chunk).
+channels × 16128 frames the whole audio is 660 MB a chunk). On a CUDA
+device whose configuration runs the planar tier, the default process
+function replays each wire chunk (an int16 pair) as a CUDA graph held for
+the stream (`runtime/stream_graph.py`), recorded here, before the first
+chunk; other chunks, tiers and devices, and a process function the caller
+gives, run eagerly.
 
 Under a running `torch.profiler` (`utils/profiling.span`), `push` records
 the span `monitor.push`, a root with a chunk identifier of its own, and
@@ -43,7 +48,7 @@ import torch
 
 from supersdr_tpu_torch.device import default_device
 from supersdr_tpu_torch.io import wav as wav_io
-from supersdr_tpu_torch.runtime import wideband
+from supersdr_tpu_torch.runtime import stream_graph, wideband
 from supersdr_tpu_torch.utils import profiling
 
 
@@ -82,7 +87,8 @@ class MonitorCore:
                 else:
                     st, out = wideband.process(cfg, params, state, iq)
                 return st, out.audio, out.rssi
-            self.process_fn = _serial
+            self.process_fn = stream_graph.wrap(cfg, self.params, self.state,
+                                                _serial)
             self.channel_order = wideband.audio_channel_order(cfg)
         elif self.channel_order is None:
             self.channel_order = getattr(self.process_fn, "channel_order",

@@ -53,6 +53,7 @@ import math
 import torch
 
 from supersdr_tpu_torch.ops.cuda import halo
+from supersdr_tpu_torch.utils import held
 
 HALO_IMPLS = ("rdma", "ppermute")
 
@@ -102,12 +103,6 @@ def _span(t: torch.Tensor) -> int:
     if t.numel() == 0:
         return 0
     return 1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
-
-
-def _leaves(tree) -> list:
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    return [x for v in tree if v is not None for x in _leaves(v)]
 
 
 def _refill(tree, it):
@@ -429,7 +424,7 @@ class ProcessTransport(Transport):
         return got
 
     def replicate(self, tree, src: int = -1):
-        leaves = _leaves(tree)
+        leaves = held.leaves(tree)
         flat = torch.cat([v.contiguous().reshape(-1).view(torch.uint8)
                           for v in leaves])
         got = self._from_rank(flat, src)

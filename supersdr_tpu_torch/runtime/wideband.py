@@ -305,7 +305,7 @@ def channel_freqs(cfg: WidebandConfig, center_hz: float = 0.0,
     return freqs[np.asarray(order)]
 
 
-def _is_i16_pair(iq) -> bool:
+def is_i16_pair(iq) -> bool:
     """True for a plain (re_i16, im_i16) pair; a plain pair of any other
     dtype raises (wrap float planes as cx.CX)."""
     if not (isinstance(iq, tuple) and not isinstance(iq, cx.CX)
@@ -333,7 +333,7 @@ def coerce(iq, device):
     """A chunk on `device`: an int16 pair as a pair of contiguous int16
     tensors, anything else as a CX of float32 planes (`cx.as_cx`); each
     plane copied from the host counted (`_count_crossings`)."""
-    if _is_i16_pair(iq):
+    if is_i16_pair(iq):
         _count_crossings(iq, device)
         return tuple(torch.as_tensor(p).to(device).contiguous() for p in iq)
     # a complex array or tensor crosses as two planes, as a CX does

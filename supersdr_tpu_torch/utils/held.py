@@ -25,7 +25,9 @@ Each holds at most `maxsize` entries, the oldest dropped first. `plan`
 records every call with `profiling.count_plan` (held or built) and
 `FromTensors` every build, under the chunk that made it, only while a
 profiler runs. `clear()` empties both kinds: the next chunk builds its
-plan and its tensors anew.
+plan and its tensors anew. `leaves` and `versions` read a tree's tensors
+and their version counters (`runtime/stream_graph` checks its parameters
+so).
 """
 
 from __future__ import annotations
@@ -74,7 +76,16 @@ def plan(fn, maxsize: int = 64):
     return get
 
 
-def _versions(sources) -> tuple | None:
+def leaves(tree) -> list:
+    """The tensors of a tree of named tuples and tuples, in field order
+    (None fields skipped)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for v in tree if v is not None for x in leaves(v)]
+
+
+def versions(sources) -> tuple | None:
+    """Each source tensor's version counter, or None where one has none."""
     try:
         return tuple(t._version for t in sources)
     except (RuntimeError, AttributeError):
@@ -92,15 +103,15 @@ class FromTensors:
         _CLEARS.append(self.cache.clear)
 
     def __call__(self, sources: tuple[torch.Tensor, ...], *static):
-        versions = _versions(sources)
-        if versions is None:
+        seen = versions(sources)
+        if seen is None:
             return self.build(*sources, *static)
         key = (tuple(map(id, sources)), static)
         entry = self.cache.get(key)
-        if entry is not None and entry[1] == versions:
+        if entry is not None and entry[1] == seen:
             return entry[2]
         value = self.build(*sources, *static)
         # the entry holds its sources: their ids stay theirs while it lives
-        _put(self.cache, key, (sources, versions, value), self.maxsize)
+        _put(self.cache, key, (sources, seen, value), self.maxsize)
         profiling.count_plan(True)
         return value

@@ -8,9 +8,10 @@
   * `BlockTimer` — streaming per-stage wall-time stats (EWMA + percentiles)
     for the host loop: source wait, device step, sink push
   * `log` — structured logging setup (one line per event, key=value)
-  * `span` / `count_sync` / `count_plan` / `count_gate` — the program's
-    own spans, host↔device crossings, plan builds and squelch gates,
-    recorded only while a `torch.profiler` runs (below)
+  * `span` / `count_sync` / `count_plan` / `count_gate` / `count_graph` —
+    the program's own spans, host↔device crossings, plan builds, squelch
+    gates and held-graph replays, recorded only while a `torch.profiler`
+    runs (below)
 
 `BlockTimer`, `ThroughputMeter` and `get_logger` are the reference's.
 
@@ -31,10 +32,13 @@ counts as built. `count_gate(gain_in, open_out)` keeps, under the chunk,
 what a squelch gate met, and `gates()` counts it on the device: the
 channels settled open (entered at gain 1 and decided open: its audio
 passes unchanged), settled shut (entered at gain 0 and decided shut: its
-audio is zeros) and moving (the rest). `spans()`, `host_syncs()`,
-`plans()`, `gates()` read what was recorded (`gates()` reads the device
-once), `clear_spans()` empties all four. With no profiler running a span
-costs one flag read: nothing is recorded and nothing is counted.
+audio is zeros) and moving (the rest). `count_graph(replayed)` records
+whether the chunk replayed a held CUDA graph (`runtime/stream_graph.py`)
+or ran otherwise (eager, or a capture first). `spans()`, `host_syncs()`,
+`plans()`, `gates()`, `graphs()` read what was recorded (`gates()` reads
+the device once), `clear_spans()` empties all five. With no profiler
+running a span costs one flag read: nothing is recorded and nothing is
+counted.
 
 `device_span(name, like)` is a span whose device work can be found in a
 CUDA-only device trace, which holds no host events: where the tensor
@@ -100,6 +104,7 @@ class _Recorder:
         self.syncs: dict = defaultdict(int)
         self.plans: dict = {}
         self.gates: dict = {}
+        self.graphs: dict = {}
 
     def open(self, name: str, chunk: int | None) -> "_Recorder":
         st = self.stack
@@ -220,6 +225,16 @@ def count_plan(built: bool) -> None:
         plans[chunk] = plans.get(chunk, False) or built
 
 
+def count_graph(replayed: bool) -> None:
+    """Record, under the innermost open span's chunk, that the chunk
+    replayed a held graph (True) or did not (False: it ran eager, or
+    captured its graph first)."""
+    if _autograd_profiler._is_profiler_enabled:
+        graphs = _RECORDER.graphs
+        chunk = _RECORDER.chunk()
+        graphs[chunk] = graphs.get(chunk, True) and replayed
+
+
 def count_gate(gain_in: torch.Tensor, open_out: torch.Tensor) -> None:
     """Keep, under the innermost open span's chunk, the gain each channel
     entered a squelch gate with and the gate it decided, for `gates()` to
@@ -248,6 +263,12 @@ def plans() -> dict:
     return dict(_RECORDER.plans)
 
 
+def graphs() -> dict:
+    """{chunk identifier: True where the chunk replayed a held graph,
+    False where it did not} since the last `clear_spans()`."""
+    return dict(_RECORDER.graphs)
+
+
 def _met(gain_in: torch.Tensor, open_out: torch.Tensor) -> torch.Tensor:
     """[settled open, settled shut, moving] channels of one gate."""
     settled_open = (gain_in == 1) & (open_out == 1)
@@ -269,7 +290,8 @@ def gates() -> dict:
 
 
 def clear_spans() -> None:
-    """Forget every recorded span, crossing, plan and gate record."""
+    """Forget every recorded span, crossing, plan, gate and graph
+    record."""
     _RECORDER.clear()
 
 

@@ -20,6 +20,7 @@ from supersdr_tpu_torch.parallel import (collectives, dist_fft, ingest, mesh,
                                          pipeline, sharded_chain,
                                          sharded_wideband)
 from supersdr_tpu_torch.runtime import chain, wideband
+from supersdr_tpu_torch.utils import held
 
 D = 8                                   # time shards of every case
 
@@ -118,7 +119,7 @@ def chain_run(case: str, world=None) -> dict:
         audio.append(out.audio.numpy())
         rssi.append(out.rssi.numpy())
     return {"audio": np.stack(audio), "rssi": np.stack(rssi),
-            "state": [v.numpy() for v in collectives._leaves(st)]}
+            "state": [v.numpy() for v in held.leaves(st)]}
 
 
 def chain_traffic(mode: str, world=None) -> dict:
@@ -180,7 +181,7 @@ def wb_run(case: str, world=None) -> dict:
     full = proc.gather_state(st)
     return {"audio": audio, "rssi": rssi, "tier": proc.tier,
             "order": np.asarray(proc.channel_order), "rows": proc.rows,
-            "state": [v.numpy() for v in collectives._leaves(full)]}
+            "state": [v.numpy() for v in held.leaves(full)]}
 
 
 def fft_run(world=None) -> np.ndarray:
@@ -207,7 +208,7 @@ def pipe_run(world=None) -> dict:
     st, audio = pipeline.build(cfg, pipeline.make_mesh("cpu", world=world))(
         p, wideband.init_state(cfg, device="cpu"), mbs)
     return {"audio": audio.numpy(),
-            "state": [v.numpy() for v in collectives._leaves(st)]}
+            "state": [v.numpy() for v in held.leaves(st)]}
 
 
 def ingest_run(world=None) -> dict:
